@@ -1,0 +1,13 @@
+"""bevy_tpu_torch.ecs — the core runtime (port of bevy_tpu.ecs): global dense
+SoA pools on the device, systems as eager functions over them."""
+
+from bevy_tpu_torch.ecs.component import (  # noqa: F401
+    component, field, resource, ComponentSpec, ComponentInstance, get_spec,
+)
+from bevy_tpu_torch.ecs.entity import Entity, NULL_ENTITY  # noqa: F401
+from bevy_tpu_torch.ecs.world import World  # noqa: F401
+from bevy_tpu_torch.ecs.query import (  # noqa: F401
+    Query, Read, Res, ResMut, With, Without,
+)
+from bevy_tpu_torch.ecs.system import system, System  # noqa: F401
+from bevy_tpu_torch.ecs.schedule import Schedule  # noqa: F401

@@ -1,0 +1,185 @@
+"""The World: host-side structural API over a device-resident state dict
+(port of bevy_tpu/ecs/world.py; ref: bevy_ecs World, `world/mod.rs:93`).
+
+Storage model: global dense SoA pools. Every registered component owns,
+per field, one `(capacity, *shape)` tensor plus a `(capacity,)` membership
+mask; entity id == row index. The state dict keeps the JAX package's
+layout (`ent`, `comp`, `res`, `msg`, `sys`, `tick`, `frame`), so the two
+packages' worlds convert into each other key for key.
+
+Structural edits (register, spawn) happen on the host between frames and
+write the pools in place; numpy mirrors track liveness, and every edit
+bumps `structure_version` (what the App's prepare hooks key on).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Sequence
+
+import numpy as np
+import torch
+
+from bevy_tpu_torch.ecs.component import (
+    ComponentInstance, ComponentSpec, get_spec, np_dtype,
+)
+from bevy_tpu_torch.ecs.entity import Entity
+
+
+def as_tensor(value, dtype, device):
+    """A fresh tensor of `dtype` on `device` (never a view of `value`)."""
+    if isinstance(value, torch.Tensor):
+        return value.to(device=device, dtype=dtype, copy=True)
+    return torch.tensor(np.asarray(value, np_dtype(dtype)), device=device)
+
+
+class World:
+    DEFAULT_CAPACITY = 1024
+
+    def __init__(self, capacity: int = DEFAULT_CAPACITY, device="cpu"):
+        self.capacity = int(capacity)
+        self.device = torch.device(device)
+        self.structure_version = 0
+        self.specs: Dict[str, ComponentSpec] = {}
+        dev = self.device
+        self.state: Dict[str, Any] = {
+            "ent": {
+                "alive": torch.zeros(self.capacity, dtype=torch.bool, device=dev),
+                "generation": torch.zeros(self.capacity, dtype=torch.int32,
+                                          device=dev),
+            },
+            "comp": {},
+            "res": {},
+            "msg": {},
+            "sys": {},
+            "tick": torch.tensor(1, dtype=torch.int32, device=dev),
+            "frame": torch.tensor(0, dtype=torch.int32, device=dev),
+        }
+        self._host_alive = np.zeros(self.capacity, bool)
+        self._host_has: Dict[str, np.ndarray] = {}
+
+    def component_rows(self, comp) -> int:
+        """Host-known row count of a component (trace-free fast paths,
+        e.g. flat transform propagation)."""
+        has = self._host_has.get(get_spec(comp).name)
+        return 0 if has is None else int(has.sum())
+
+    # ------------------------------------------------------------------
+    # registration
+
+    def register_component(self, comp) -> ComponentSpec:
+        spec = get_spec(comp)
+        if spec.name in self.specs:
+            if self.specs[spec.name] is not spec:
+                raise ValueError(f"component name {spec.name!r} already "
+                                 f"registered by a different type")
+            return spec
+        self.specs[spec.name] = spec
+        n, dev = self.capacity, self.device
+        self.state["comp"][spec.name] = {
+            "has": torch.zeros(n, dtype=torch.bool, device=dev),
+            "added": torch.zeros(n, dtype=torch.int32, device=dev),
+            "changed": torch.zeros(n, dtype=torch.int32, device=dev),
+            "removed": torch.zeros(n, dtype=torch.int32, device=dev),
+            "f": {fname: torch.zeros((n,) + fld.shape, dtype=fld.dtype,
+                                     device=dev)
+                  for fname, fld in spec.fields.items()},
+        }
+        self._host_has[spec.name] = np.zeros(n, bool)
+        self.structure_version += 1
+        return spec
+
+    # ------------------------------------------------------------------
+    # resources (named dicts of tensors in state['res'])
+
+    def insert_resource(self, res, value: Optional[Any] = None):
+        if isinstance(res, ComponentInstance):
+            spec = res.spec
+            self.state["res"][spec.name] = {
+                fname: as_tensor(res.values.get(fname, fld.default),
+                                 fld.dtype, self.device)
+                for fname, fld in spec.fields.items()}
+            name = spec.name
+        elif isinstance(res, str):
+            name = res
+            self.state["res"][name] = value
+        else:
+            raise TypeError("insert_resource expects a component instance "
+                            "or (name, dict of tensors)")
+        self.structure_version += 1
+        return name
+
+    # ------------------------------------------------------------------
+    # host-tier structural ops
+
+    def grow(self, min_capacity: int):
+        new_cap = self.capacity
+        while new_cap < min_capacity:
+            new_cap *= 2
+        if new_cap == self.capacity:
+            return
+        pad = new_cap - self.capacity
+
+        def pad0(t):
+            return torch.cat([t, torch.zeros((pad,) + t.shape[1:],
+                                             dtype=t.dtype, device=t.device)])
+
+        self.state["ent"] = {k: pad0(v) for k, v in self.state["ent"].items()}
+        self.state["comp"] = {
+            name: {k: ({f: pad0(a) for f, a in v.items()} if k == "f"
+                       else pad0(v)) for k, v in c.items()}
+            for name, c in self.state["comp"].items()}
+        self._host_alive = np.pad(self._host_alive, (0, pad))
+        for name in self._host_has:
+            self._host_has[name] = np.pad(self._host_has[name], (0, pad))
+        self.capacity = new_cap
+        self.structure_version += 1
+
+    def spawn(self, *components: ComponentInstance) -> Entity:
+        rows = self.spawn_batch(list(components), 1)
+        return Entity(int(rows[0]), 0)
+
+    def spawn_batch(self, components: Sequence[ComponentInstance],
+                    count: int) -> np.ndarray:
+        """Bulk spawn `count` entities sharing a component set; field values
+        may be scalars (broadcast) or (count, *shape) arrays. Returns row
+        indices (ref: World::spawn_batch)."""
+        free = np.flatnonzero(~self._host_alive)
+        if len(free) < count:
+            self.grow(self.capacity + (count - len(free)))
+            free = np.flatnonzero(~self._host_alive)
+        rows = free[:count]
+        self._host_alive[rows] = True
+        trows = torch.as_tensor(rows, device=self.device)
+        # host structural ops stamp strictly after any earlier tick
+        tick = self.state["tick"] + 1
+        self.state["tick"] = tick
+        self.state["ent"]["alive"][trows] = True
+        for inst in components:
+            spec = self.register_component(inst.spec)
+            self._host_has[spec.name][rows] = True
+            store = self.state["comp"][spec.name]
+            for fname, fld in spec.fields.items():
+                val = inst.values.get(fname, fld.default)
+                store["f"][fname][trows] = as_tensor(
+                    val, fld.dtype, self.device).expand((count,) + fld.shape)
+            store["has"][trows] = True
+            store["added"][trows] = tick
+            store["changed"][trows] = tick
+        self.structure_version += 1
+        return rows
+
+    # ------------------------------------------------------------------
+    # host-tier reads
+
+    def column(self, comp, fname: str) -> torch.Tensor:
+        """Whole field column (capacity rows, on the world's device)."""
+        return self.state["comp"][get_spec(comp).name]["f"][fname]
+
+    def query_rows(self, *comps) -> np.ndarray:
+        m = self._host_alive.copy()
+        for comp in comps:
+            m &= self._host_has[get_spec(comp).name]
+        return np.flatnonzero(m)
+
+    def entity_count(self, *comps) -> int:
+        return len(self.query_rows(*comps))

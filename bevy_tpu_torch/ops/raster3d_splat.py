@@ -1,0 +1,324 @@
+"""Window-splat rasterizer (port of bevy_tpu/ops/raster3d_splat.py; ref:
+bevy's GPU-driven meshlet raster, `bevy_pbr/src/meshlet/`).
+
+1. `build_windows`: each visible cluster emits one window per overlapped
+   (win_h-row × 128-column) framebuffer block; single-band clusters get one
+   window at their own y0. Exorbitant clusters go to the streaming-tile
+   fallback (raster3d_visbuf.raster_visbuf).
+2. `build_rec_rows` / `build_quad_rec_rows`: valid-first per-cluster
+   record rows (3-edge triangles, stride 13, or 4-edge coplanar quads,
+   stride 16).
+3. `fused_eval_composite`: evaluates every window's records and merges
+   depth + winner id into the framebuffer (kernel B1,
+   `csrc/splat_raster.cu`, replacing `_fused_kernel`).
+
+Merge order. The TPU ran windows one after another, so each window's
+read-modify-write saw all earlier ones. Under the strict `z > cur` test,
+that sequential result at a pixel is exactly the lexicographic maximum of
+(z, -seq) over the writes that pass the edge test, seq being the write's
+position in (window, slot) order, with the incoming framebuffer value
+winning all ties. Both versions below compute that maximum as a 64-bit
+key `order(z) << 32 | (0xFFFFFFFE - seq)` (the incoming value carries low
+bits 0xFFFFFFFF) with a max-reduction, then decode seq back to the
+record's id — so windows may run in any order.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from bevy_tpu_torch.ops import _cuda
+from bevy_tpu_torch.ops.binning import expand_runs
+
+WIN_W = 128          # window width = one 128-px framebuffer column block
+REC_FIELDS = 13      # triangle record: 3 edge planes (9) + z plane (3) + id
+_LOW = 0xFFFFFFFF    # low key bits of the incoming framebuffer value
+_HI = 1 << 32        # key = order(z) * _HI | low bits
+
+
+def build_rec_rows(zrec, cs: int, ntri: int):
+    """Valid-first record packing, gather-free: slot s of a cluster's row
+    is its s-th valid triangle (masked sum over the cs axis). Empty slots
+    are all-zero records, which `z > depth` rejects. Returns (ncl, rrows,
+    128) float32 rows of stride REC_FIELDS. zrec: (ncl*cs, ZREC) or
+    (ncl, cs, ZREC)."""
+    ncl = zrec.shape[0] if zrec.ndim == 3 else zrec.shape[0] // cs
+    r = zrec.reshape(ncl, cs, -1)[:, :, :REC_FIELDS]
+    valid = r[:, :, 12] >= 0.0                     # tri_id < 0 = culled
+    vr = torch.where(valid, torch.cumsum(valid.to(torch.int32), 1) - 1, -1)
+    slots = [torch.sum(r * (vr == s).to(r.dtype)[:, :, None], 1)
+             for s in range(min(ntri, cs))]
+    return _pad_rows(torch.cat(slots, 1))
+
+
+def _pad_rows(rows):
+    """(ncl, rowlen) → (ncl, rrows, 128), zero-padded."""
+    rowlen = rows.shape[1]
+    rrows = (rowlen + WIN_W - 1) // WIN_W
+    rows = torch.nn.functional.pad(rows, (0, rrows * WIN_W - rowlen))
+    return rows.reshape(rows.shape[0], rrows, WIN_W)
+
+
+def coplanar_quad_pairs(positions, triangles):
+    """Host-side static pairing of coplanar adjacent triangles into
+    convex quads (a planar convex quad rasterizes with 4 edge planes + 1 z
+    plane instead of two triangles' 6 + 2).
+
+    Returns a list of entries covering every non-degenerate triangle:
+    ("pair", iA, aU, aV, iB, bU, bV) — iA/iB local tri indices, aU/aV
+    the A-local corner indices of the two SHARED verts (their lambda
+    planes vanish on A's two boundary edges), bU/bV likewise for B —
+    or ("tri", i) for unpaired triangles."""
+    import numpy as np
+    tris = np.asarray(triangles, np.int64)
+    pos = np.asarray(positions, np.float64)
+    tc = len(tris)
+    n = np.cross(pos[tris[:, 1]] - pos[tris[:, 0]],
+                 pos[tris[:, 2]] - pos[tris[:, 0]])
+    nl = np.linalg.norm(n, axis=1)
+    scale = float(np.max(np.abs(pos)) + 1e-12)
+    nn = n / np.maximum(nl, 1e-20)[:, None]
+    edge_map = {}
+    for i in range(tc):
+        if nl[i] < 1e-12:
+            continue                       # degenerate (padding) tri
+        for k in range(3):
+            a, b = int(tris[i, k]), int(tris[i, (k + 1) % 3])
+            edge_map.setdefault((min(a, b), max(a, b)), []).append((i, k))
+    used = np.zeros(tc, bool)
+    out = []
+    for i in range(tc):
+        if used[i] or nl[i] < 1e-12:
+            continue
+        used[i] = True
+        match = None
+        for k in range(3):
+            a = int(tris[i, k])
+            b = int(tris[i, (k + 1) % 3])
+            for (j, kj) in edge_map.get((min(a, b), max(a, b)), ()):
+                if j == i or used[j]:
+                    continue
+                if float(np.dot(nn[i], nn[j])) < 1.0 - 1e-5:
+                    continue               # not coplanar / opposite facing
+                oj = int(tris[j, (kj + 2) % 3])
+                if abs(float(np.dot(pos[oj] - pos[tris[i, 0]], nn[i]))) \
+                        > 1e-5 * scale:
+                    continue               # parallel but offset planes
+                # convexity of the union polygon oi -> a -> oj -> b
+                oi = int(tris[i, (k + 2) % 3])
+                quad = pos[[oi, a, oj, b]]
+                ed = np.roll(quad, -1, 0) - quad
+                cr = np.cross(ed, np.roll(ed, -1, 0)) @ nn[i]
+                if not (np.all(cr > 1e-12 * scale * scale) or
+                        np.all(cr < -1e-12 * scale * scale)):
+                    continue               # non-convex quad
+                match = (j, k, kj)
+                break
+            if match:
+                break
+        if match is None:
+            out.append(("tri", i))
+            continue
+        j, k, kj = match
+        used[j] = True
+        a = int(tris[i, k])
+        b = int(tris[i, (k + 1) % 3])
+        bl = [int(x) for x in tris[j]]
+        out.append(("pair", i, k, (k + 1) % 3, j,
+                    bl.index(a), bl.index(b)))
+    return out
+
+
+def build_quad_rec_rows(zrec, cs: int, entries, nquad: int):
+    """Quad records (nedge=4, stride 16) assembled from the per-triangle
+    zrec by static slices: [edgeA_u, edgeA_v, edgeB_u, edgeB_v, z, id] —
+    the lambda planes of the shared corners, z and id from triangle A. A
+    quad is valid only when both triangles are; unpaired ("tri", i)
+    entries repeat an edge plane as the 4th. Returns (ncl, rrows, 128)
+    rows, valid-first like build_rec_rows."""
+    ncl = zrec.shape[0] if zrec.ndim == 3 else zrec.shape[0] // cs
+    r = zrec.reshape(ncl, cs, -1)
+    qs, oks = [], []
+    for e in entries:
+        if e[0] == "pair":
+            _, iA, aU, aV, iB, bU, bV = e
+            qs.append(torch.cat([
+                r[:, iA, 3 * aU:3 * aU + 3], r[:, iA, 3 * aV:3 * aV + 3],
+                r[:, iB, 3 * bU:3 * bU + 3], r[:, iB, 3 * bV:3 * bV + 3],
+                r[:, iA, 9:13]], 1))
+            oks.append((r[:, iA, 12] >= 0.0) & (r[:, iB, 12] >= 0.0))
+        else:
+            i = e[1]
+            qs.append(torch.cat([r[:, i, 0:9], r[:, i, 0:3], r[:, i, 9:13]], 1))
+            oks.append(r[:, i, 12] >= 0.0)
+    q = torch.stack(qs, 1)                         # (ncl, nq, 16)
+    vq = torch.stack(oks, 1)                       # (ncl, nq)
+    vr = torch.where(vq, torch.cumsum(vq.to(torch.int32), 1) - 1, -1)
+    slots = [torch.sum(q * (vr == s).to(q.dtype)[:, :, None], 1)
+             for s in range(min(nquad, len(entries)))]
+    return _pad_rows(torch.cat(slots, 1))
+
+
+def build_windows(aabb, cl_valid, *, win_h, width, height, budget,
+                  max_blocks=32):
+    """Decompose visible cluster AABBs into per-block windows.
+
+    Returns dict with owner (B,) int32, meta (B,) int32 packed
+    col*2048+y0, wvalid (B,) prefix bools, fallback (NCL,) bool (clusters
+    for the streaming kernel), overflow () int32 dropped windows."""
+    ncols = (width + WIN_W - 1) // WIN_W
+    nbands = (height + win_h - 1) // win_h
+    x0, y0, x1, y1 = aabb[:, 0], aabb[:, 1], aabb[:, 2], aabb[:, 3]
+    onscreen = (x1 > 0) & (x0 < width) & (y1 > 0) & (y0 < height) & \
+        (x1 > x0) & (y1 > y0) & cl_valid
+
+    def cell(v, size, hi):
+        return torch.clamp(torch.floor(v / size).to(torch.int32), 0, hi)
+
+    c0 = cell(x0, WIN_W, ncols - 1)
+    c1 = cell(x1 - 1e-3, WIN_W, ncols - 1)
+    b0 = cell(y0, win_h, nbands - 1)
+    b1 = cell(y1 - 1e-3, win_h, nbands - 1)
+    nbx = c1 - c0 + 1
+    single_band = y1 - y0 <= win_h - 1.0
+    nby = torch.where(single_band, 1, b1 - b0 + 1)
+    blocks = nbx * nby
+    use = onscreen & (blocks <= max_blocks)
+    owner, rank, pvalid, total = expand_runs(torch.where(use, blocks, 0),
+                                             budget)
+    ymax = max(height - win_h, 0)
+    wy0 = torch.clamp(torch.floor(y0).to(torch.int32), 0, ymax)
+    crow = torch.stack([c0, torch.clamp(nbx, min=1), b0, wy0,
+                        single_band.to(torch.int32)], 1)[owner]   # (B, 5)
+    col = torch.clamp(crow[:, 0] + rank % crow[:, 1], 0, ncols - 1)
+    band_y = (crow[:, 2] + rank // crow[:, 1]) * win_h
+    # single-band clusters: one unaligned window at their own y0
+    wy = torch.where(crow[:, 4] > 0, crow[:, 3],
+                     torch.clamp(band_y, 0, ymax))
+    return {
+        "owner": torch.where(pvalid, owner, 0).to(torch.int32),
+        "meta": torch.where(pvalid, col * 2048 + wy, 0).to(torch.int32),
+        "wvalid": pvalid,
+        "fallback": onscreen & (blocks > max_blocks),
+        "overflow": torch.clamp(total - budget, min=0),
+    }
+
+
+# ----------------------------------------------------------------------
+# B1: fused window evaluate + composite
+
+def order_key(f):
+    """float32 → int64 whose signed order is the float order."""
+    b = f.view(torch.int32)
+    return torch.where(b >= 0, b, b ^ 0x7FFFFFFF).to(torch.int64)
+
+
+def _key_float(hi):
+    b = hi.to(torch.int32)
+    return torch.where(b >= 0, b, b ^ 0x7FFFFFFF).view(torch.float32)
+
+
+def _fused_plain(depth, winner, rec_rows, owner, meta, wvalid, *, win_h,
+                 ntri, nedge, chunk=4096):
+    """Plain PyTorch version of B1: per window, the first slot holding the
+    maximal z that passes the edge test, then a scatter-max of the (z,
+    -seq) keys over all windows, then the decode."""
+    H, W = depth.shape
+    dev = depth.device
+    stride = 3 * nedge + 4
+    flat = rec_rows.reshape(rec_rows.shape[0], -1)
+    d0 = depth.reshape(-1)
+    key = torch.cat([order_key(d0) * _HI | _LOW,
+                     torch.zeros(1, dtype=torch.int64, device=dev)])
+    lane = torch.arange(WIN_W, dtype=torch.int32, device=dev)
+    row = torch.arange(win_h, dtype=torch.int32, device=dev)
+    for start in range(0, owner.shape[0], chunk):
+        o = owner[start:start + chunk]
+        m = meta[start:start + chunk]
+        rec = flat[o]                                        # (b, rowlen)
+        x = ((m // 2048) * WIN_W)[:, None, None] + lane[None, None, :]
+        y = (m % 2048)[:, None, None] + row[None, :, None]
+        px = x.to(torch.float32) + 0.5                       # (b, 1, 128)
+        py = y.to(torch.float32) + 0.5                       # (b, win_h, 1)
+        best = torch.full((o.shape[0], win_h, WIN_W), float("-inf"),
+                          device=dev)
+        best_s = torch.full(best.shape, -1, dtype=torch.int64, device=dev)
+        for s in range(ntri):
+            def d(j, _b=s * stride):
+                return rec[:, _b + j][:, None, None]
+            emax = None
+            for j in range(nedge):
+                e = (d(3 * j) * px + d(3 * j + 2)) + d(3 * j + 1) * py
+                emax = e if emax is None else torch.maximum(emax, e)
+            zb = 3 * nedge
+            z = (d(zb) * px + d(zb + 2)) + d(zb + 1) * py
+            ok = (emax <= 0) & (z > best)
+            best = torch.where(ok, z, best)
+            best_s = torch.where(ok, s, best_s)
+        inb = (x < W) & (y < H) & wvalid[start:start + chunk, None, None]
+        p = (y.clamp(max=H - 1) * W + x.clamp(max=W - 1)).to(torch.int64)
+        take = inb & (best_s >= 0) & (best > d0[p])
+        seq = (torch.arange(start, start + o.shape[0], device=dev)[:, None, None]
+               * ntri + best_s)
+        k = order_key(best) * _HI | (0xFFFFFFFE - seq)
+        key.scatter_reduce_(0, torch.where(take, p, H * W).reshape(-1),
+                            k.reshape(-1), "amax")
+    key = key[:H * W]
+    low = key & _LOW
+    changed = low != _LOW
+    seq = torch.where(changed, 0xFFFFFFFE - low, 0)
+    rid = flat[owner[seq // ntri], (seq % ntri) * stride + 3 * nedge + 3]
+    dep = torch.where(changed, _key_float(
+        torch.div(key, _HI, rounding_mode="floor")), d0)
+    win = torch.where(changed, rid, winner.reshape(-1))
+    return dep.reshape(H, W), win.reshape(H, W)
+
+
+def fused_eval_composite(depth, winner, rec_rows, owner, meta, wvalid, *,
+                         win_h=32, ntri=8, nedge=3):
+    """Evaluate + merge windows (kernel B1; replaces the JAX package's
+    `fused_eval_composite` → `_fused_kernel`).
+
+    depth/winner (H, W) f32; rec_rows (ncl, rrows, 128) from
+    build_rec_rows (nedge=3) or build_quad_rec_rows (nedge=4), `ntri`
+    record slots per row; owner/meta/wvalid from build_windows. Per pixel
+    of each window and record slot: edges `e = (a*px + c) + b*py`, inside
+    if every e <= 0; `z = (za*px + zc) + zb*py`; a write where z beats the
+    depth (strict). Returns new (depth, winner) — winner holds the record's
+    id field (global tri id as f32). CPU tensors run the plain PyTorch
+    version; CUDA tensors launch `csrc/splat_raster.cu`."""
+    stride = 3 * nedge + 4
+    if rec_rows.dim() != 3:
+        raise ValueError("rec_rows must be (ncl, rrows, 128)")
+    row_len = rec_rows.shape[1] * rec_rows.shape[2]
+    if ntri * stride > row_len:
+        raise ValueError(f"{ntri} slots of stride {stride} exceed the "
+                         f"{row_len}-float record row")
+    if depth.device.type == "cpu":
+        return _fused_plain(depth, winner, rec_rows, owner, meta, wvalid,
+                            win_h=win_h, ntri=ntri, nedge=nedge)
+    H, W = depth.shape
+    nb = owner.shape[0]
+    _cuda.require(depth, "depth", torch.float32)
+    _cuda.require(winner, "winner", torch.float32, (H, W))
+    _cuda.require(rec_rows, "rec_rows", torch.float32)
+    _cuda.require(owner, "owner", torch.int32, (nb,))
+    _cuda.require(meta, "meta", torch.int32, (nb,))
+    _cuda.require(wvalid, "wvalid", torch.bool, (nb,))
+    if nedge not in (3, 4) or nb * ntri >= 0xFFFFFFFE:
+        raise ValueError("fused_eval_composite: unsupported shape")
+    key = torch.empty((H, W), dtype=torch.int64, device=depth.device)
+    dep_out = torch.empty_like(depth)
+    win_out = torch.empty_like(winner)
+    lib = _cuda.library()
+    err = lib.bt_splat_fused(
+        depth.data_ptr(), winner.data_ptr(), rec_rows.data_ptr(), row_len,
+        owner.data_ptr(), meta.data_ptr(), wvalid.data_ptr(), nb, ntri,
+        nedge, win_h, H, W, key.data_ptr(), dep_out.data_ptr(),
+        win_out.data_ptr(), _cuda.stream_ptr(depth))
+    _cuda.check(err, "bt_splat_fused")
+    fused_eval_composite.launches += 1
+    return dep_out, win_out
+
+
+fused_eval_composite.launches = 0

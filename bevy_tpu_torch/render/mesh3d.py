@@ -1,0 +1,483 @@
+"""3D mesh rendering, the opaque flat-forward slice (port of
+bevy_tpu/render/mesh3d.py; ref: bevy_pbr's mesh pipeline + meshlet
+visibility-buffer raster, Lambert directional + ambient).
+
+Every mesh group renders as one uniform instanced batch: vertex transform
+by batched matmul, corner extraction by index gather, cluster cull,
+clipless plane setup, window decomposition, then the two raster kernels —
+B1 window splat (ops/raster3d_splat.fused_eval_composite) for small
+clusters, B2 streaming tiles (ops/raster3d_visbuf.raster_visbuf) for giant
+and near-plane ones — into one depth + winner-id buffer, and a shade-once
+flat resolve.
+
+Ported: the uniform-group, opaque, single full-frame camera, flat-forward
+branch of `make_mesh_pass`, with the instance sphere-frustum cull, the
+identity `run_phase` selection, two window classes and the compacted
+fallback. Every other feature of the JAX mesh pass raises
+NotImplementedError naming the ROADMAP item that brings it.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+from torch.profiler import record_function as span
+
+from bevy_tpu_torch.app.main_schedule import Render
+from bevy_tpu_torch.app.plugin import Plugin
+from bevy_tpu_torch.ecs.component import component, field, resource
+from bevy_tpu_torch.ecs.query import Query, Read, Res, ResMut
+from bevy_tpu_torch.ecs.system import system
+from bevy_tpu_torch.math.affine import TRS, trs_to_mat4
+from bevy_tpu_torch.math.quat import quat_rotate_vec3
+from bevy_tpu_torch.ops.raster3d_splat import (
+    build_quad_rec_rows, build_rec_rows, build_windows, coplanar_quad_pairs,
+    fused_eval_composite,
+)
+from bevy_tpu_torch.ops.raster3d_visbuf import (
+    ZREC, bin_clusters, cluster_records, cluster_screen_aabbs,
+    pack_flat_shade, pack_planes_h, raster_visbuf, resolve_flat,
+)
+from bevy_tpu_torch.render.camera import (
+    Camera3d, perspective_infinite_reverse, pick_camera, view_matrix,
+)
+from bevy_tpu_torch.render.mesh import MeshPool
+from bevy_tpu_torch.render.plugin import PASS_SET, RenderTarget
+
+
+@component
+class Mesh3d:
+    """Handle into the MeshPool (ref: Mesh3d + Handle<Mesh>); lod_near /
+    lod_far bound the camera-distance band (ref: VisibilityRange)."""
+    mesh = field((), torch.int32)
+    layers = field((), torch.int32, default=1)  # ref: RenderLayers bitmask
+    lod_near = field((), default=0.0)
+    lod_far = field((), default=3.4e38)
+
+
+@component
+class MeshMaterial:
+    """StandardMaterial subset (ref: bevy_pbr/src/pbr_material.rs). The
+    same fields as the JAX package, so worlds convert column for column;
+    the flat-forward slice reads base_color, emissive, metallic and
+    perceptual_roughness and refuses worlds that set the others."""
+    base_color = field(4, default=(1.0, 1.0, 1.0, 1.0))
+    emissive = field(3)
+    metallic = field(())
+    perceptual_roughness = field((), default=0.5)
+    clearcoat = field(())
+    clearcoat_roughness = field((), default=0.5)
+    specular_transmission = field(())
+    ior = field((), default=1.5)
+    anisotropy_strength = field(())
+    anisotropy_rotation = field(())
+    parallax_depth_scale = field(())
+    dm_min = field(2)
+    dm_max = field(2)
+    thickness = field(())
+    attenuation_distance = field(())
+    attenuation_color = field(3, default=(1.0, 1.0, 1.0))
+    diffuse_transmission = field(())
+    reflectance = field((), default=0.5)
+    specular_tint = field(3, default=(1.0, 1.0, 1.0))
+    depth_bias = field(())
+    uv_transform = field(6, default=(1.0, 0.0, 0.0, 1.0, 0.0, 0.0))
+    uv_min = field(2)
+    uv_max = field(2)
+    nm_min = field(2)
+    nm_max = field(2)
+    lm_min = field(2)
+    lm_max = field(2)
+    em_min = field(2)
+    em_max = field(2)
+    mr_min = field(2)
+    mr_max = field(2)
+    oc_min = field(2)
+    oc_max = field(2)
+
+
+@component
+class DirectionalLight:
+    """ref: bevy_light DirectionalLight — direction is the entity's -Z
+    axis; intensity normalized."""
+    color = field(3, default=(1.0, 1.0, 1.0))
+    illuminance = field((), default=1.0)
+
+
+@resource
+class AmbientLight:
+    """ref: bevy_light AmbientLight resource."""
+    color = field(3, default=(1.0, 1.0, 1.0))
+    brightness = field((), default=0.08)
+
+
+def _unported(feature, item):
+    return NotImplementedError(
+        f"{feature} is not ported to bevy_tpu_torch yet (ROADMAP {item})")
+
+
+# MeshMaterial fields the flat-forward slice does not read, with the
+# default a world must keep and the ROADMAP item that brings each
+_MATERIAL_GATES = (
+    ("specular_transmission", 0.0, "transmission", "A8"),
+    ("diffuse_transmission", 0.0, "transmission", "A8"),
+    ("anisotropy_strength", 0.0, "anisotropy", "A5"),
+    ("parallax_depth_scale", 0.0, "parallax mapping", "A5"),
+    ("depth_bias", 0.0, "depth bias", "A8"),
+    ("uv_transform", (1.0, 0.0, 0.0, 1.0, 0.0, 0.0), "uv transforms", "A5"),
+    ("specular_tint", (1.0, 1.0, 1.0), "specular tint", "A4"),
+)
+
+
+def _rebuild_expansion(world, plugin):
+    """Host: group mesh instances per mesh (each group renders as one
+    uniform batch; ref position: PrepareMeshes). Runs on structural change
+    only, and refuses worlds the flat-forward slice cannot draw."""
+    rows = world.query_rows(Mesh3d)
+    cam_rows = world.query_rows(Camera3d)
+    if len(cam_rows) > 1:
+        raise _unported("multi-camera rendering", "A8")
+    if len(cam_rows):
+        vmn = world.column(Camera3d, "vp_min").cpu().numpy()[cam_rows]
+        vmx = world.column(Camera3d, "vp_max").cpu().numpy()[cam_rows]
+        if np.any(vmn != 0.0) or np.any(vmx != 1.0):
+            raise _unported("camera viewports", "A8")
+    mesh_ids = world.column(Mesh3d, "mesh").cpu().numpy()[rows]
+    col = {name: world.column(MeshMaterial, name).cpu().numpy()[rows]
+           for name in ("base_color",) + tuple(g[0] for g in _MATERIAL_GATES)}
+    if np.any(col["base_color"][:, 3] < 0.999):
+        raise _unported("the transparent phase (OIT)", "A8")
+    for name, default, feature, item in _MATERIAL_GATES:
+        if np.any(col[name] != np.asarray(default, np.float32)):
+            raise _unported(feature, item)
+    dev = world.device
+    plugin._groups = []
+    for mid in np.unique(mesh_ids):
+        m = plugin.pool.meshes[int(mid)]
+        nrm = m.normals[m.triangles.astype(np.int64)]
+        if not (np.all(nrm[:, 0] == nrm[:, 1]) and
+                np.all(nrm[:, 0] == nrm[:, 2])):
+            raise _unported("smooth-shaded (non-flat) meshes", "A5")
+        grows = rows[mesh_ids == mid].astype(np.int64)
+        plugin._groups.append(dict(
+            uniform_batch(m, dev), n=len(grows),
+            rows=torch.as_tensor(grows, device=dev)))
+
+
+def uniform_batch(mesh, device, cs=12):
+    """Per-mesh constants of a uniform batch, on the device once per
+    prepare (so a frame copies nothing from the host): homogeneous
+    positions, normals, the triangle index table padded to whole clusters
+    (padding = degenerate), the bounding sphere and the static coplanar
+    quad pairing (single-cluster, mostly-quad meshes only)."""
+    tc0 = mesh.num_triangles
+    tcp = (tc0 + cs - 1) // cs * cs
+    tris = np.zeros((tcp, 3), np.int64)
+    tris[:tc0] = mesh.triangles
+    pos = mesh.positions
+    cen = (pos.min(0) + pos.max(0)) * 0.5
+    quads = None
+    if tcp == cs:
+        entries = coplanar_quad_pairs(pos, mesh.triangles)
+        if 2 * sum(1 for e in entries if e[0] == "pair") >= tc0:
+            quads = entries
+    ones = np.ones((mesh.num_vertices, 1), np.float32)
+    return {
+        "ph": torch.as_tensor(np.concatenate([pos, ones], 1), device=device),
+        "normals": torch.as_tensor(mesh.normals, device=device),
+        "tris": torch.as_tensor(tris, device=device),
+        "center": torch.as_tensor(cen, device=device),
+        "radius": float(np.linalg.norm(pos - cen, axis=1).max()),
+        "quads": quads,
+    }
+
+
+def directional_light_vec(light, amb):
+    """(16,) light params for the raster: [dir xyz, light rgb, ambient rgb,
+    0…] from the first DirectionalLight entity + AmbientLight."""
+    li, has_light = pick_camera(light.mask)
+    rot = light.global_transform.rotation[li]
+    fwd = torch.zeros(3, device=rot.device)
+    fwd[2] = -1.0
+    ldir = quat_rotate_vec3(rot, fwd)
+    lcol = light.directional_light.color[li] * \
+        light.directional_light.illuminance[li] * has_light
+    return torch.cat([ldir, lcol, amb.color * amb.brightness,
+                      torch.zeros(7, device=rot.device)])
+
+
+def raster_batched(clip, nrm, batch, inst_ok, mat_inst, light_vec,
+                   target, stats, *, width, height, tile_h=16, tile_w=128,
+                   max_per_tile=512, cluster_size=12, win_h=32,
+                   window_budget=65536, eval_tris=None,
+                   visible_budget=65536):
+    """Visibility-buffer raster of one uniform batch, flat-forward shaded.
+
+    clip (Ni, VC, 4) clip-space positions, nrm (Ni, VC, 3) world normals,
+    batch the mesh's `uniform_batch` constants, inst_ok (Ni,) bool,
+    mat_inst (Ni, 9) [rgba, emissive, metallic, roughness]. Writes
+    target.depth and target.color (composed over the incoming color).
+
+    Profiler spans (torch.profiler): mesh:setup, mesh:windows,
+    mesh:splat_B1, mesh:fallback_bin, mesh:stream_B2, mesh:resolve."""
+    with span("mesh:setup"):
+        setup = _setup(clip, nrm, batch, inst_ok, mat_inst, light_vec,
+                       width, height, cluster_size, eval_tris, visible_budget)
+    aabb, cl_valid, zmax, zrec, frec, rec_rows, nslots, nedge, k = setup
+    cs = cluster_size
+    dev = clip.device
+    # two window classes: half-height windows for small footprints
+    h_px = aabb[:, 3] - aabb[:, 1]
+    half_h = max(win_h // 2, 8)
+    classes = ((half_h, h_px <= half_h - 1.0), (win_h, h_px > half_h - 1.0))
+    wbudget = min(window_budget // 2, 4 * k + 64)
+    wbudget = (wbudget + 7) // 8 * 8
+    depth = target.depth
+    winner = torch.full_like(depth, -1.0)
+    fallback = None
+    for class_h, cmask in classes:
+        with span("mesh:windows"):
+            wins = build_windows(aabb, cl_valid & cmask, win_h=class_h,
+                                 width=width, height=height, budget=wbudget)
+        with span("mesh:splat_B1"):
+            depth, winner = fused_eval_composite(
+                depth, winner, rec_rows, wins["owner"], wins["meta"],
+                wins["wvalid"], win_h=class_h, ntri=nslots, nedge=nedge)
+        stats.pair_overflow = stats.pair_overflow + wins["overflow"]
+        fallback = wins["fallback"] if fallback is None else \
+            fallback | wins["fallback"]
+
+    # fallback: giant footprints + near-plane straddlers through the binned
+    # streaming tile kernel, compacted first to a small static budget
+    with span("mesh:fallback_bin"):
+        kfb = min(2048, k)
+        fb32 = fallback.to(torch.int32)
+        nfb = torch.sum(fb32)
+        posf = torch.cumsum(fb32, 0) - 1
+        tgtf = torch.where(fallback & (posf < kfb), posf, kfb)
+        idsf = torch.zeros(kfb + 1, dtype=torch.int32, device=dev)
+        idsf[tgtf.long()] = torch.arange(k, dtype=torch.int32, device=dev)
+        idsf = idsf[:kfb]
+        vfb = torch.arange(kfb, dtype=torch.int32, device=dev) < nfb
+        stats.pair_overflow = stats.pair_overflow + \
+            torch.clamp(nfb - kfb, min=0)
+        stats.fallback_clusters = stats.fallback_clusters + nfb
+        zrec_f = zrec[idsf].reshape(kfb * cs, ZREC)
+        hp_t = (height + tile_h - 1) // tile_h
+        wp_t = (width + tile_w - 1) // tile_w
+        qz = torch.clamp((1.0 - zmax[idsf]) * 65535.0, 0, 65535) \
+            .to(torch.int32)
+        cl_table, cl_counts, st = bin_clusters(
+            aabb[idsf], vfb, ntx=wp_t, nty=hp_t, tile_w=tile_w,
+            tile_h=tile_h, max_clusters_per_tile=max(256, max_per_tile // cs),
+            pair_budget=4 * kfb + hp_t * wp_t + 1024, order_key=qz)
+        recs = cluster_records(zrec_f, cs)
+    with span("mesh:stream_B2"):
+        depth, winner = raster_visbuf(depth, winner, recs, cl_table,
+                                      cl_counts, tile_h=tile_h,
+                                      tile_w=tile_w, cs=cs)
+    stats.pair_overflow = stats.pair_overflow + st["pair_overflow"]
+    stats.tile_overflow = stats.tile_overflow + st["tile_overflow"]
+    target.depth = depth
+    with span("mesh:resolve"):
+        target.color = resolve_flat(winner.to(torch.int32), frec,
+                                    target.color)
+
+
+def _setup(clip, nrm, batch, inst_ok, mat_inst, light_vec, width, height,
+           cs, eval_tris, visible_budget):
+    """Corner extraction, cluster cull, clipless plane setup, flat shade
+    records and the window kernel's record rows of one uniform batch."""
+    dev = clip.device
+    ni = clip.shape[0]
+    tri_idx = batch["tris"]
+    cc_num = tri_idx.shape[0] // cs                 # clusters per instance
+    n_cl = ni * cc_num
+    k = min(visible_budget, n_cl)
+    if k < n_cl:
+        raise _unported("visible_budget below the cluster count", "A8")
+    # corner extraction: an index gather (bit-equal to the TPU's one-hot
+    # matmul, whose every output is one product by 1.0)
+    cc = clip[:, tri_idx].reshape(n_cl, cs, 3, 4)
+    cn = nrm[:, tri_idx].reshape(n_cl, cs, 3, 3)
+    cl_ok = inst_ok[:, None].expand(ni, cc_num).reshape(n_cl)
+    aabb, cl_valid, zmax = cluster_screen_aabbs(
+        cc, cl_ok, torch.ones(n_cl * cs, dtype=torch.bool, device=dev), cs,
+        width, height)
+
+    # -- run_phase, identity selection: every cluster is a candidate, its
+    #    triangles valid where the cluster is (padding triangles are
+    #    degenerate and fail pack_planes_h's guards)
+    mat_tri = mat_inst[:, None, None, :].expand(ni, cc_num, cs, 9) \
+        .reshape(n_cl, cs, 9)
+    zrec, valid = pack_planes_h(cc, cn, cl_valid[:, None].expand(n_cl, cs),
+                                width, height)
+    frec = pack_flat_shade(cn, mat_tri, light_vec, valid).reshape(n_cl * cs, 8)
+    ntri_f = cs if eval_tris is None else min(eval_tris, cs)
+    quads = batch["quads"]
+    if quads is not None:
+        # coplanar-quad records: the window kernel evaluates ~half the
+        # slots with 4-edge quads
+        nslots = min(len(quads), max(2, (ntri_f + 1) // 2))
+        rec_rows = build_quad_rec_rows(zrec, cs, quads, nslots)
+        nedge = 4
+    else:
+        nslots = ntri_f
+        rec_rows = build_rec_rows(zrec, cs, nslots)
+        nedge = 3
+    return aabb, cl_valid, zmax, zrec, frec, rec_rows, nslots, nedge, k
+
+
+def _frustum_cull(batch, gt_t, gt_r, gt_s, inst_ok, view, fov, near, aspect,
+                  budget):
+    """Instance-level sphere-frustum cull + compaction (ref: the GPU
+    frustum cull of mesh_preprocess.wesl): every later stage then runs on
+    `budget` instances. Returns (ids (budget,) int32 into the batch rows,
+    visible count)."""
+    wc = gt_t + quat_rotate_vec3(gt_r, batch["center"][None] * gt_s)
+    r_i = batch["radius"] * torch.amax(torch.abs(gt_s), 1)
+    vch = wc @ view[:3, :3].T + view[:3, 3]
+    tf_ = torch.tan(fov * 0.5)
+    ta_ = tf_ * aspect
+    vz = vch[:, 2]
+    inside = -vz > near - r_i
+    inside &= (-vz * ta_ - torch.abs(vch[:, 0])) > \
+        -r_i * torch.sqrt(1.0 + ta_ * ta_)
+    inside &= (-vz * tf_ - torch.abs(vch[:, 1])) > \
+        -r_i * torch.sqrt(1.0 + tf_ * tf_)
+    inside &= inst_ok
+    ins32 = inside.to(torch.int32)
+    posc = torch.cumsum(ins32, 0) - 1
+    tgt = torch.where(inside & (posc < budget), posc, budget)
+    ids = torch.zeros(budget + 1, dtype=torch.int32, device=gt_t.device)
+    ids[tgt.long()] = torch.arange(batch["n"], dtype=torch.int32,
+                                   device=gt_t.device)
+    return ids[:budget], torch.sum(ins32)
+
+
+def make_mesh_pass(width, height, plugin, tile_h=32, tile_w=128,
+                   max_per_tile=256, win_h=32, window_budget=65536,
+                   eval_tris=None, visible_budget=65536, cull_budget=None):
+    from bevy_tpu_torch.transform import GlobalTransform
+
+    @system(name="mesh_pass")
+    def mesh_pass(q=Query(Read(Mesh3d), Read(MeshMaterial),
+                          Read(GlobalTransform)),
+                  cam=Query(Read(Camera3d), Read(GlobalTransform)),
+                  light=Query(Read(DirectionalLight), Read(GlobalTransform)),
+                  amb=Res(AmbientLight),
+                  target=ResMut(RenderTarget.RESOURCE),
+                  stats=ResMut("render_stats")):
+        ci, has_cam = pick_camera(cam.mask)
+        cam_gt = cam.global_transform
+        aspect = width / height
+        view = view_matrix(cam_gt.translation[ci], cam_gt.rotation[ci],
+                           cam_gt.scale[ci])
+        proj = perspective_infinite_reverse(cam.camera3d.fov[ci], aspect,
+                                            cam.camera3d.near[ci])
+        vp = proj @ view
+        # per-row visibility: RenderLayers bitmask + LOD distance band
+        distr = torch.linalg.vector_norm(
+            q.global_transform.translation - cam_gt.translation[ci], dim=-1)
+        visrow = ((q.mesh3d.layers & cam.camera3d.layers[ci]) != 0) & \
+            (distr >= q.mesh3d.lod_near) & (distr < q.mesh3d.lod_far)
+        lv = directional_light_vec(light, amb)
+        mm = q.mesh_material
+        for grp in plugin._groups:
+            rows = grp["rows"]
+            gt_t = q.global_transform.translation[rows]
+            gt_r = q.global_transform.rotation[rows]
+            gt_s = q.global_transform.scale[rows]
+            inst_ok = q.mask[rows] & visrow[rows]
+            if cull_budget is not None and grp["n"] > cull_budget:
+                with span("mesh:cull"):
+                    ids, nvis = _frustum_cull(
+                        grp, gt_t, gt_r, gt_s, inst_ok, view,
+                        cam.camera3d.fov[ci], cam.camera3d.near[ci], aspect,
+                        cull_budget)
+                stats.pair_overflow = stats.pair_overflow + \
+                    torch.clamp(nvis - cull_budget, min=0)
+                rows = rows[ids]
+                gt_t, gt_r, gt_s = gt_t[ids], gt_r[ids], gt_s[ids]
+                inst_ok = torch.arange(cull_budget, device=rows.device) < nvis
+            inst_ok = inst_ok & has_cam
+            with span("mesh:vertex"):
+                mats = trs_to_mat4(TRS(translation=gt_t, rotation=gt_r,
+                                       scale=gt_s))
+                mvp = torch.einsum("ij,njk->nik", vp, mats)
+                clip = torch.einsum("nij,vj->nvi", mvp, grp["ph"])  # (Ni,VC,4)
+                nrm = quat_rotate_vec3(gt_r[:, None, :], grp["normals"][None])
+            mat_inst = torch.cat([mm.base_color[rows], mm.emissive[rows],
+                                  mm.metallic[rows][:, None],
+                                  mm.perceptual_roughness[rows][:, None]], 1)
+            raster_batched(
+                clip, nrm, grp, inst_ok, mat_inst, lv, target, stats,
+                width=width, height=height, tile_h=tile_h, tile_w=tile_w,
+                max_per_tile=max_per_tile, win_h=win_h,
+                window_budget=window_budget, eval_tris=eval_tris,
+                visible_budget=visible_budget)
+
+    return mesh_pass
+
+
+class Mesh3dPlugin(Plugin):
+    """ref: MeshPlugin + PbrPlugin's pipeline half. Owns the MeshPool;
+    add meshes with `add_mesh` before the first frame."""
+
+    def __init__(self, pool: MeshPool = None, tile_h=32, tile_w=128,
+                 pairs_per_tri=2, max_per_tile=256, backend="auto",
+                 deferred=False, win_h=32, window_budget=65536,
+                 eval_tris=None, atlas=None, visible_budget=65536,
+                 occlusion_cull=False, material_fn=None, cull_budget=None,
+                 shards=None, bvh_cull=False, motion_vectors=False):
+        for on, feature, item in (
+                (backend == "xla", "the XLA reference raster backend", "A3"),
+                (deferred, "deferred lighting", "A4"),
+                (atlas is not None, "textured materials", "A5"),
+                (occlusion_cull, "two-phase occlusion culling", "A8"),
+                (material_fn is not None, "custom materials", "A8"),
+                (bvh_cull, "the BVH cluster cull", "A8"),
+                (motion_vectors, "motion vectors", "A8"),
+                (shards is not None, "multi-device rendering", "A10")):
+            if on:
+                raise _unported(feature, item)
+        # pairs_per_tri and the pallas/interpret backends have no effect:
+        # the kernel route follows the device of the tensors
+        self.pool = pool or MeshPool()
+        self._groups = None
+        self.cfg = dict(tile_h=tile_h, tile_w=tile_w,
+                        max_per_tile=max_per_tile, win_h=win_h,
+                        window_budget=window_budget, eval_tris=eval_tris,
+                        visible_budget=visible_budget,
+                        cull_budget=cull_budget)
+
+    def add_mesh(self, mesh, lods: int = 1) -> int:
+        if lods > 1:
+            raise _unported("mesh LOD chains", "A8")
+        return self.pool.add(mesh)
+
+    def build(self, app):
+        from bevy_tpu_torch.render.plugin import RenderPlugin
+        from bevy_tpu_torch.transform import GlobalTransform, Transform
+        rp = next((p for p in app._plugins if isinstance(p, RenderPlugin)),
+                  None)
+        if rp is None:
+            raise RuntimeError("Mesh3dPlugin requires RenderPlugin")
+        for c in (Mesh3d, MeshMaterial, DirectionalLight, Camera3d,
+                  Transform, GlobalTransform):
+            app.world.register_component(c)
+        app.init_resource(AmbientLight())
+        if "render_stats" not in app.world.state["res"]:
+            zero = torch.zeros((), dtype=torch.int32, device=app.device)
+            app.insert_resource("render_stats", {
+                "pair_overflow": zero, "tile_overflow": zero,
+                "fallback_clusters": zero})
+        plugin = self
+
+        def finish_pool(world):
+            _rebuild_expansion(world, plugin)
+
+        app.add_prepare_hook(finish_pool)
+        app.add_systems(Render, make_mesh_pass(rp.width, rp.height,
+                                               plugin=self, **self.cfg),
+                        in_set=PASS_SET)

@@ -1,0 +1,72 @@
+"""RenderPlugin (port of bevy_tpu/render/plugin.py; ref: bevy_render
+RenderPlugin lib.rs:132, phase sets lib.rs:158-212).
+
+The framebuffer is a device-resident resource: color channel-planar
+(4, H, W) linear f32, depth reverse-z (H, W) cleared to 0 with a GREATER
+test. `frame_image()` is the one host readback point (the present /
+screenshot position).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from bevy_tpu_torch.app.main_schedule import Render
+from bevy_tpu_torch.app.plugin import Plugin
+from bevy_tpu_torch.color import image_to_srgb_u8
+from bevy_tpu_torch.ecs.component import field, resource
+from bevy_tpu_torch.ecs.query import Res, ResMut
+from bevy_tpu_torch.ecs.system import system
+
+
+class RenderTarget:
+    RESOURCE = "render_target"
+
+
+@resource
+class ClearColor:
+    """ref: ClearColor resource; linear RGBA."""
+    color = field(4, default=(0.098, 0.098, 0.133, 1.0))
+
+
+# Render-schedule system sets (ref: RenderSystems, lib.rs:158-212)
+CLEAR_SET = "render:clear"
+QUEUE_SET = "render:queue"
+PASS_SET = "render:pass"        # 3D geometry passes
+
+
+@system(name="clear_render_target")
+def clear_render_target(target=ResMut(RenderTarget.RESOURCE),
+                        clear=Res(ClearColor)):
+    target.color = clear.color[:, None, None].expand(target.color.shape)
+    target.depth = torch.zeros_like(target.depth)
+
+
+class RenderPlugin(Plugin):
+    """width/height are static: they size the framebuffer and raster grids."""
+
+    def __init__(self, width: int = 1280, height: int = 720):
+        self.width = width
+        self.height = height
+
+    def build(self, app):
+        h, w, dev = self.height, self.width, app.device
+        app.init_resource(ClearColor())
+        app.insert_resource(RenderTarget.RESOURCE, {
+            "color": torch.zeros((4, h, w), dtype=torch.float32, device=dev),
+            "depth": torch.zeros((h, w), dtype=torch.float32, device=dev),
+            "size": torch.tensor([w, h], dtype=torch.float32, device=dev),
+            "ssaa": torch.tensor(1, dtype=torch.int32, device=dev),
+        })
+        sched = app.schedule(Render)
+        sched.configure_set(CLEAR_SET)
+        sched.configure_set(QUEUE_SET, after=CLEAR_SET)
+        sched.configure_set(PASS_SET, after=[CLEAR_SET, QUEUE_SET])
+        app.add_systems(Render, clear_render_target, in_set=CLEAR_SET)
+
+
+def frame_image(app) -> np.ndarray:
+    """Host readback of the framebuffer as sRGB u8 (H, W, 4)."""
+    fb = app.world.state["res"][RenderTarget.RESOURCE]["color"]
+    return image_to_srgb_u8(fb.permute(1, 2, 0)).cpu().numpy()

@@ -1,0 +1,86 @@
+"""Time (port of bevy_tpu/time/__init__.py; ref: bevy_time —
+Time<Real>/Time<Virtual>/Time<Fixed> with the overstep accumulator,
+`src/fixed.rs:69,181`).
+
+The generic `Time` resource follows the current context clock: virtual
+time in the main schedules, fixed time inside FixedMain (the App's fixed
+loop swaps it).
+"""
+
+import torch
+
+from bevy_tpu_torch.app.main_schedule import First
+from bevy_tpu_torch.app.plugin import Plugin
+from bevy_tpu_torch.ecs.component import field, resource
+from bevy_tpu_torch.ecs.query import Res, ResMut
+from bevy_tpu_torch.ecs.system import system
+
+DEFAULT_FIXED_HZ = 64.0  # ref: bevy_time Fixed default 64 Hz
+
+
+@resource
+class Time:
+    delta = field(())
+    elapsed = field(())
+
+
+@resource
+class TimeReal:
+    delta = field(())
+    elapsed = field(())
+
+
+@resource
+class TimeVirtual:
+    delta = field(())
+    elapsed = field(())
+    relative_speed = field((), default=1.0)
+    paused = field((), torch.bool, default=False)
+    max_delta = field((), default=0.25)  # ref: Virtual::max_delta
+
+
+@resource
+class TimeFixed:
+    timestep = field((), default=1.0 / DEFAULT_FIXED_HZ)
+    overstep = field(())
+    elapsed = field(())
+
+
+@resource
+class FrameInput:
+    """Host→device per-frame input written by App.update (dt)."""
+    dt = field(())
+
+
+@resource
+class FrameCount:
+    count = field((), torch.int32)
+
+
+@system(name="time_system")
+def time_system(inp=Res(FrameInput),
+                real=ResMut(TimeReal),
+                virt=ResMut(TimeVirtual),
+                time=ResMut(Time),
+                fixed=ResMut(TimeFixed),
+                frames=ResMut(FrameCount)):
+    dt = inp.dt
+    real.delta = dt
+    real.elapsed = real.elapsed + dt
+    vdt = torch.minimum(dt, virt.max_delta) * virt.relative_speed
+    vdt = torch.where(virt.paused, torch.zeros_like(vdt), vdt)
+    virt.delta = vdt
+    virt.elapsed = virt.elapsed + vdt
+    time.delta = vdt
+    time.elapsed = virt.elapsed  # generic clock follows virtual
+    # accumulate the fixed overstep (drained by the App's fixed loop)
+    fixed.overstep = fixed.overstep + vdt
+    frames.count = frames.count + 1
+
+
+class TimePlugin(Plugin):
+    def build(self, app):
+        for res in (Time, TimeReal, TimeVirtual, TimeFixed, FrameInput,
+                    FrameCount):
+            app.init_resource(res())
+        app.add_systems(First, time_system)

@@ -1,0 +1,266 @@
+"""bevy_tpu_torch raster ops vs the JAX package, function by function.
+
+The same inputs, made from a seed with numpy, go through the JAX function
+and its port. Where the JAX function reaches a Pallas kernel it runs in
+interpret mode (`interpret=True`), the kernel path itself — never the XLA
+reference raster that `backend="auto"` picks on a CPU. On CPU tensors the
+port's kernel wrappers run their plain PyTorch versions, so B1 and B2 are
+held here through those.
+
+Tolerances: integer outputs (owners, ranks, tile tables, window meta) must
+be equal; planes and depth agree to rtol 1e-5 / atol 1e-6 (XLA may fuse a
+multiply-add that eager PyTorch rounds twice); winner ids must agree on at
+least 99.5% of covered pixels (an exact-edge pixel may flip between two
+triangles, the allowance of tests/test_render3d.py).
+"""
+
+import numpy as np
+import pytest
+import torch
+import jax.numpy as jnp
+
+from bevy_tpu.math.affine import TRS as JTRS
+from bevy_tpu.math.affine import trs_to_mat4 as j_trs_to_mat4
+from bevy_tpu.math.quat import quat_rotate_vec3 as j_quat_rotate_vec3
+from bevy_tpu.ops import binning as jbin
+from bevy_tpu.ops import raster3d_splat as jsplat
+from bevy_tpu.ops import raster3d_visbuf as jvis
+from bevy_tpu.render.camera import (
+    perspective_infinite_reverse as j_persp, view_matrix as j_view)
+from bevy_tpu.render.mesh import cuboid as j_cuboid
+
+from bevy_tpu_torch.ops import binning as tbin
+from bevy_tpu_torch.ops import raster3d_splat as tsplat
+from bevy_tpu_torch.ops import raster3d_visbuf as tvis
+
+W, H = 256, 128
+CS = 12
+LIGHT = np.concatenate([[0.0, -0.7071, -0.7071, 1.0, 0.9, 0.8, 0.1, 0.1,
+                         0.12], np.zeros(7)]).astype(np.float32)
+
+
+def T(x):
+    return torch.from_numpy(np.array(x))
+
+
+def N(x):
+    return np.asarray(x.numpy() if isinstance(x, torch.Tensor) else x)
+
+
+def _cubes(n, seed, spread, z_range, rot=(0.2474, 0.0, 0.3, 0.9689)):
+    """Clip-space corners (n, 12, 3, 4) and corner normals (n, 12, 3, 3)
+    of n unit cubes, computed once with the JAX package (the scene setup
+    of tests/test_splat.py and tests/test_visbuf.py)."""
+    rng = np.random.RandomState(seed)
+    xyz = np.stack([rng.uniform(-spread, spread, n),
+                    rng.uniform(-spread / 2, spread / 2, n),
+                    rng.uniform(z_range[0], z_range[1], n)], 1)
+    m = j_cuboid(1.0, 1.0, 1.0)
+    vc = m.num_vertices
+    vp = j_persp(jnp.asarray(0.9), W / H, jnp.asarray(0.1)) @ j_view(
+        jnp.zeros(3), jnp.asarray([0.0, 0.0, 0.0, 1.0]), jnp.ones(3))
+    q = np.asarray(rot, np.float32) / np.linalg.norm(rot)
+    r = jnp.tile(jnp.asarray(q), (n, 1))
+    mats = j_trs_to_mat4(JTRS(translation=jnp.asarray(xyz, jnp.float32),
+                              rotation=r, scale=jnp.ones((n, 3))))
+    mvp = jnp.einsum("ij,njk->nik", vp, mats)
+    ph = jnp.concatenate([jnp.asarray(m.positions),
+                          jnp.ones((vc, 1), jnp.float32)], 1)
+    clip = np.asarray(jnp.einsum("nij,vj->nvi", mvp, ph))
+    nrm = np.asarray(j_quat_rotate_vec3(r[:, None, :],
+                                        jnp.asarray(m.normals)[None]))
+    tris = m.triangles
+    return clip[:, tris].astype(np.float32), nrm[:, tris].astype(np.float32)
+
+
+@pytest.fixture(scope="module")
+def far():
+    """Cubes in front of the camera, small footprints (both window
+    classes), from the JAX pipeline: everything downstream takes these
+    numpy arrays."""
+    cc, cn = _cubes(40, seed=3, spread=18.0, z_range=(-60.0, -12.0))
+    zrec, _, valid = jvis.pack_planes_h(jnp.asarray(cc), jnp.asarray(cn),
+                                        jnp.ones((40, CS), bool), W, H,
+                                        build_srec=False)
+    aabb, cl_valid, zmax = jvis.cluster_screen_aabbs(
+        jnp.asarray(cc), jnp.ones(40, bool), valid, CS, W, H)
+    return dict(cc=cc, cn=cn, zrec=np.asarray(zrec), valid=np.asarray(valid),
+                aabb=np.asarray(aabb), cl_valid=np.asarray(cl_valid),
+                zmax=np.asarray(zmax))
+
+
+@pytest.fixture(scope="module")
+def near():
+    """Cubes around a camera inside the scene: near-plane straddlers with
+    full-viewport AABBs and giant footprints (the fallback set)."""
+    cc, cn = _cubes(12, seed=3, spread=3.0, z_range=(-4.0, 0.4))
+    zrec, _, valid = jvis.pack_planes_h(jnp.asarray(cc), jnp.asarray(cn),
+                                        jnp.ones((12, CS), bool), W, H,
+                                        build_srec=False)
+    aabb, cl_valid, zmax = jvis.cluster_screen_aabbs(
+        jnp.asarray(cc), jnp.ones(12, bool), valid, CS, W, H)
+    return dict(cc=cc, cn=cn, zrec=np.asarray(zrec), valid=np.asarray(valid),
+                aabb=np.asarray(aabb), cl_valid=np.asarray(cl_valid),
+                zmax=np.asarray(zmax))
+
+
+def _close(a, b):
+    np.testing.assert_allclose(N(a), N(b), rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("capacity", [64, 7])
+def test_expand_runs(capacity):
+    counts = np.random.RandomState(0).randint(0, 5, 20).astype(np.int32)
+    ja = jbin.expand_runs(jnp.asarray(counts), capacity)
+    ta = tbin.expand_runs(T(counts), capacity)
+    for j, t in zip(ja, ta):
+        assert np.array_equal(N(j), N(t))
+
+
+@pytest.mark.parametrize("scene", ["far", "near"])
+def test_pack_planes_h(scene, request):
+    s = request.getfixturevalue(scene)
+    zrec, valid = tvis.pack_planes_h(T(s["cc"]), T(s["cn"]),
+                                     torch.ones((len(s["cc"]), CS), dtype=torch.bool),
+                                     W, H)
+    assert np.array_equal(N(valid), s["valid"])
+    _close(zrec, s["zrec"])
+
+
+@pytest.mark.parametrize("scene", ["far", "near"])
+def test_cluster_screen_aabbs(scene, request):
+    s = request.getfixturevalue(scene)
+    n = len(s["cc"])
+    aabb, cl_valid, zmax = tvis.cluster_screen_aabbs(
+        T(s["cc"]), torch.ones(n, dtype=torch.bool), T(s["valid"]), CS, W, H)
+    assert np.array_equal(N(cl_valid), s["cl_valid"])
+    _close(aabb, s["aabb"])
+    _close(zmax, s["zmax"])
+
+
+@pytest.mark.parametrize("win_h", [16, 32])
+def test_build_windows(far, near, win_h):
+    for s in (far, near):
+        jw = jsplat.build_windows(jnp.asarray(s["aabb"]),
+                                  jnp.asarray(s["cl_valid"]), win_h=win_h,
+                                  width=W, height=H, budget=256, max_blocks=4)
+        tw = tsplat.build_windows(T(s["aabb"]), T(s["cl_valid"]), win_h=win_h,
+                                  width=W, height=H, budget=256, max_blocks=4)
+        for k in ("owner", "meta", "wvalid", "fallback", "overflow"):
+            assert np.array_equal(N(jw[k]), N(tw[k])), k
+    assert N(tw["fallback"]).any()      # the near scene has a fallback set
+
+
+def test_build_rec_rows(far):
+    _close(tsplat.build_rec_rows(T(far["zrec"]), CS, 8),
+           jsplat.build_rec_rows(jnp.asarray(far["zrec"]), CS, 8))
+
+
+def test_build_quad_rec_rows(far):
+    m = j_cuboid()
+    entries = jsplat.coplanar_quad_pairs(m.positions, m.triangles)
+    assert tsplat.coplanar_quad_pairs(m.positions, m.triangles) == entries
+    _close(tsplat.build_quad_rec_rows(T(far["zrec"]), CS, entries, 4),
+           jsplat.build_quad_rec_rows(jnp.asarray(far["zrec"]), CS, entries, 4))
+
+
+@pytest.mark.parametrize("order", [False, True])
+def test_bin_clusters(far, near, order):
+    for s in (far, near):
+        zmax = s["zmax"]
+        key = np.clip((1.0 - zmax) * 65535.0, 0, 65535).astype(np.int32) \
+            if order else None
+        kw = dict(ntx=W // 128, nty=H // 16, tile_w=128, tile_h=16,
+                  max_clusters_per_tile=40, pair_budget=1024)
+        jt, jc, js = jvis.bin_clusters(
+            jnp.asarray(s["aabb"]), jnp.asarray(s["cl_valid"]),
+            order_key=None if key is None else jnp.asarray(key), **kw)
+        tt, tc, ts = tvis.bin_clusters(
+            T(s["aabb"]), T(s["cl_valid"]),
+            order_key=None if key is None else T(key), **kw)
+        assert np.array_equal(N(jt), N(tt))
+        assert np.array_equal(N(jc), N(tc))
+        for k in js:
+            assert int(js[k]) == int(ts[k]), k
+
+
+def test_pack_flat_shade_and_resolve_flat(far):
+    rng = np.random.RandomState(1)
+    mat = rng.uniform(0.0, 1.0, (40, CS, 9)).astype(np.float32)
+    jrec = jvis.pack_flat_shade(jnp.asarray(far["cn"]), jnp.asarray(mat),
+                                jnp.asarray(LIGHT), jnp.asarray(far["valid"]))
+    trec = tvis.pack_flat_shade(T(far["cn"]), T(mat), T(LIGHT),
+                                T(far["valid"]))
+    _close(trec, jrec)
+    winner = rng.randint(-1, 40 * CS, (H, W)).astype(np.int32)
+    color = rng.uniform(0.0, 1.0, (4, H, W)).astype(np.float32)
+    flat = np.asarray(jrec).reshape(-1, 8)
+    assert np.array_equal(
+        N(tvis.resolve_flat(T(winner), T(flat), T(color))),
+        np.asarray(jvis.resolve_flat(jnp.asarray(winner), jnp.asarray(flat),
+                                     jnp.asarray(color))))
+
+
+def _compare_visbuf(jd, jw, td, tw):
+    jd, jw, td, tw = N(jd), N(jw), N(td), N(tw)
+    np.testing.assert_allclose(td, jd, rtol=1e-5, atol=1e-6)
+    cov = (jd > 0) | (td > 0)
+    assert cov.mean() > 0.02                      # the scene drew something
+    assert np.mean(jw[cov] == tw[cov]) >= 0.995
+
+
+@pytest.mark.parametrize("quads", [False, True])
+def test_fused_eval_composite_plain_matches_pallas(far, quads):
+    """Kernel B1's plain version vs the Pallas `_fused_kernel` (interpret
+    mode) on the same windows and record rows, over a framebuffer that
+    already holds depth (so the incoming value's tie rule is exercised)."""
+    zrec = jnp.asarray(far["zrec"])
+    if quads:
+        m = j_cuboid()
+        entries = jsplat.coplanar_quad_pairs(m.positions, m.triangles)
+        rows, nedge, nslots = jsplat.build_quad_rec_rows(zrec, CS, entries, 4), 4, 4
+    else:
+        rows, nedge, nslots = jsplat.build_rec_rows(zrec, CS, 8), 3, 8
+    wins = jsplat.build_windows(jnp.asarray(far["aabb"]),
+                                jnp.asarray(far["cl_valid"]), win_h=16,
+                                width=W, height=H, budget=256)
+    assert 8 < int(jnp.sum(wins["wvalid"])) < 256
+    rng = np.random.RandomState(2)
+    dep0 = np.where(rng.uniform(size=(H, W)) < 0.3,
+                    rng.uniform(0.0, 0.01, (H, W)), 0.0).astype(np.float32)
+    win0 = np.full((H, W), -1.0, np.float32)
+    jd, jw = jsplat.fused_eval_composite(
+        jnp.asarray(dep0), jnp.asarray(win0), zrec, wins["owner"],
+        wins["meta"], wins["wvalid"], win_h=16, cs=CS, eval_tris=8,
+        interpret=True, rec_rows=rows, nedge=nedge,
+        rec_slots=nslots if quads else None)
+    td, tw = tsplat.fused_eval_composite(
+        T(dep0), T(win0), T(rows), T(wins["owner"]), T(wins["meta"]),
+        T(wins["wvalid"]), win_h=16, ntri=nslots, nedge=nedge)
+    _compare_visbuf(jd, jw, td, tw)
+
+
+def test_raster_visbuf_plain_matches_pallas(near):
+    """Kernel B2's plain version vs the Pallas `_stream_kernel` (interpret
+    mode) on the near-plane scene's tile lists."""
+    tile_h, tile_w = 16, 128
+    ntx, nty = W // tile_w, H // tile_h
+    key = np.clip((1.0 - near["zmax"]) * 65535.0, 0, 65535).astype(np.int32)
+    cl_table, cl_counts, _ = jvis.bin_clusters(
+        jnp.asarray(near["aabb"]), jnp.asarray(near["cl_valid"]), ntx=ntx,
+        nty=nty, tile_w=tile_w, tile_h=tile_h, max_clusters_per_tile=12,
+        pair_budget=512, order_key=jnp.asarray(key))
+    assert int(jnp.max(cl_counts)) >= 2
+    zrec = jnp.asarray(near["zrec"]).reshape(-1, jvis.ZREC)
+    recs = jvis.cluster_records(zrec, CS)
+    dep0 = jnp.zeros((H, W), jnp.float32)
+    win0 = jnp.full((H, W), -1.0, jnp.float32)
+    jd, jw = jvis.raster_visbuf(
+        dep0, win0, jvis.tile_chunk_records(recs, cl_table),
+        jvis.build_cluster_meta(cl_table, jnp.asarray(near["zmax"])),
+        cl_counts, tile_h=tile_h, tile_w=tile_w, cs=CS, interpret=True)
+    td, tw = tvis.raster_visbuf(T(dep0), T(win0),
+                                tvis.cluster_records(T(zrec), CS),
+                                T(cl_table), T(cl_counts), tile_h=tile_h,
+                                tile_w=tile_w, cs=CS)
+    _compare_visbuf(jd, jw, td, tw)

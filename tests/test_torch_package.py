@@ -1,0 +1,121 @@
+"""bevy_tpu_torch as a package: it never imports JAX, importing it builds
+nothing, and on CPU tensors each kernel wrapper runs its plain PyTorch
+version without launching (or building) a kernel. The one test that
+needs a CUDA card carries the `cuda` marker and skips without one; it
+runs on the card with `python -m pytest --noconftest
+tests/test_torch_package.py -m cuda` (tests/conftest.py imports JAX,
+which the card's machine lacks)."""
+
+import ast
+import importlib
+import pkgutil
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import bevy_tpu_torch
+from bevy_tpu_torch.ops import _cuda
+from bevy_tpu_torch.ops import raster3d_splat as splat
+from bevy_tpu_torch.ops import raster3d_visbuf as vis
+
+ROOT = Path(__file__).resolve().parent.parent
+PORT_FILES = sorted((ROOT / "bevy_tpu_torch").rglob("*.py")) + [
+    ROOT / "examples" / "torch_many_cubes.py", ROOT / "chip_smoke.py"]
+
+
+def _imports(path):
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=[str(p.relative_to(ROOT)) for p in PORT_FILES])
+def test_port_never_imports_jax(path):
+    """Parsed, not imported: JAX is preloaded in some environments, so
+    sys.modules cannot tell."""
+    bad = [m for m in _imports(path)
+           if m.split(".")[0] in ("jax", "jaxlib", "bevy_tpu")]
+    assert not bad, f"{path.name} imports {bad}"
+
+
+def test_import_builds_nothing():
+    for mod in pkgutil.walk_packages(bevy_tpu_torch.__path__,
+                                     "bevy_tpu_torch."):
+        importlib.import_module(mod.name)
+    assert _cuda._Loaded.lib is None
+    assert not torch.backends.cuda.matmul.allow_tf32
+    assert not torch.backends.cudnn.allow_tf32
+
+
+def _windows_case(device="cpu"):
+    """Three windows over a framebuffer that already holds some depth:
+    window 2 overlaps window 0 at equal depth, so the first writer must
+    keep the pixel; the incoming depth 0.6 beats every write (z = 0.5).
+    Returns the inputs and the expected winner ids."""
+    rng = np.random.RandomState(0)
+    H, W = 40, 200
+    rows = np.zeros((2, 1, 128), np.float32)
+    # record 0 covers px <= 100 (id 7); record 1 covers everything (id 9)
+    rows[0, 0, :13] = [1, 0, -100, 0, 0, -1, 0, 0, -1, 0.0, 0.0, 0.5, 7]
+    rows[1, 0, :13] = [0, 0, -1, 0, 0, -1, 0, 0, -1, 0.0, 0.0, 0.5, 9]
+    owner = np.array([0, 1, 1], np.int32)
+    meta = np.array([0 * 2048 + 0, 1 * 2048 + 8, 0 * 2048 + 0], np.int32)
+    wvalid = np.ones(3, bool)
+    depth = np.where(rng.uniform(size=(H, W)) < 0.2, 0.6, 0.0).astype(np.float32)
+    winner = np.full((H, W), -1.0, np.float32)
+    want = np.full((H, W), -1.0, np.float32)
+    want[:16, :128] = 9.0
+    want[:16, :100] = 7.0
+    want[8:24, 128:] = 9.0
+    want[depth == 0.6] = -1.0
+    return [torch.from_numpy(a).to(device)
+            for a in (depth, winner, rows, owner, meta, wvalid)], want
+
+
+def test_wrappers_take_plain_version_on_cpu():
+    splat.fused_eval_composite.launches = 0
+    vis.raster_visbuf.launches = 0
+    (d0, w0, rows, owner, meta, wvalid), want = _windows_case()
+    dep, win = splat.fused_eval_composite(d0, w0, rows, owner, meta, wvalid,
+                                          win_h=16, ntri=1, nedge=3)
+    assert np.array_equal(win.numpy(), want)
+    assert np.array_equal(dep.numpy(), np.where(want >= 0, 0.5, d0.numpy()))
+    # B2: one full-frame triangle record (z = 0.25, id 3) in every tile
+    recs = torch.zeros((1, 256))
+    recs[0, :17] = torch.tensor([-1, 0, 0, 0, 0, -1, 0, 0, -1,
+                                 0, 0, 0.25, 3, 0, 0, 200, 40])
+    table = torch.full((4, 128), -1, dtype=torch.int32)
+    table[:, 0] = 0
+    counts = torch.ones(4, dtype=torch.int32)
+    dep2, win2 = vis.raster_visbuf(d0, w0, recs, table, counts, tile_h=32,
+                                   tile_w=128, cs=1)
+    fresh = d0 == 0.0
+    assert torch.equal(win2, torch.where(fresh, 3.0, -1.0))
+    assert torch.equal(dep2, torch.where(fresh, 0.25, 0.6))
+    assert splat.fused_eval_composite.launches == 0
+    assert vis.raster_visbuf.launches == 0
+    assert _cuda._Loaded.lib is None
+
+
+@pytest.mark.cuda
+def test_kernels_match_plain_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (runs in chip_smoke.py's environment)")
+    (d0, w0, rows, owner, meta, wvalid), want = _windows_case("cuda")
+    n0 = splat.fused_eval_composite.launches
+    dk, wk = splat.fused_eval_composite(d0, w0, rows, owner, meta, wvalid,
+                                        win_h=16, ntri=1, nedge=3)
+    dp, wp = splat._fused_plain(d0, w0, rows, owner, meta, wvalid, win_h=16,
+                                ntri=1, nedge=3)
+    torch.cuda.synchronize()
+    assert torch.equal(dk, dp) and torch.equal(wk, wp)
+    assert np.array_equal(wk.cpu().numpy(), want)
+    assert splat.fused_eval_composite.launches == n0 + 1
+    with pytest.raises(ValueError):
+        splat.fused_eval_composite(d0, w0, rows, owner.long(), meta, wvalid,
+                                   win_h=16, ntri=1, nedge=3)
