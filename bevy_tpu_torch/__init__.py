@@ -3,7 +3,9 @@ and public names as `bevy_tpu/`, which stays the reference every part of
 this package is checked against).
 
 Frames run eagerly on the device that the App was built with: no jit, no
-global default device. The raster kernels are hand-written CUDA for Hopper
+global default device. `App(...)` and `World(...)` take the CUDA card
+unless the caller passes `device="cpu"` (they raise where there is no
+card). The raster kernels are hand-written CUDA for Hopper
 (`csrc/`), built at first CUDA use (`ops/_cuda.py`); on CPU tensors each
 kernel wrapper runs its plain PyTorch version.
 """

@@ -28,7 +28,8 @@ from bevy_tpu_torch.ecs.world import World
 
 
 class App:
-    def __init__(self, capacity: int = World.DEFAULT_CAPACITY, device="cpu"):
+    def __init__(self, capacity: int = World.DEFAULT_CAPACITY,
+                 device="cuda"):
         self.world = World(capacity, device)
         self.schedules: Dict[str, Schedule] = {}
         self.main_order = list(MAIN_ORDER)

@@ -35,9 +35,12 @@ def as_tensor(value, dtype, device):
 class World:
     DEFAULT_CAPACITY = 1024
 
-    def __init__(self, capacity: int = DEFAULT_CAPACITY, device="cpu"):
+    def __init__(self, capacity: int = DEFAULT_CAPACITY, device="cuda"):
         self.capacity = int(capacity)
         self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("World: no CUDA card here; pass device='cpu' "
+                               "to run on the CPU")
         self.structure_version = 0
         self.specs: Dict[str, ComponentSpec] = {}
         dev = self.device

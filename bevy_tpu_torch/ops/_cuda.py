@@ -1,7 +1,8 @@
 """Build and bind the hand-written CUDA kernels of `bevy_tpu_torch/csrc/`.
 
-The sources compile with nvcc into one shared library with a plain C
-interface, loaded with ctypes. The build runs at the first CUDA launch
+Each source compiles with its own nvcc process (all started together),
+and the objects link into one shared library with a plain C interface,
+loaded with ctypes. The build runs at the first CUDA launch
 (never at import) into `bevy_tpu_torch/_build/<hash of the sources>/`, so
 a fresh checkout builds everything on its first frame and later processes
 reuse the library. Each C entry point takes device pointers and the CUDA
@@ -24,10 +25,9 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_build"
-SOURCES = ("splat_raster.cu", "stream_raster.cu")
+SOURCES = ("splat_raster.cu", "stream_raster.cu", "deferred_shade.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v")
+              "-O3", "--fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -36,6 +36,8 @@ _SIGNATURES = {
                        _P, _P, _P, _P],
     "bt_stream_raster": [_P, _I, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I,
                          _P, _P, _P],
+    "bt_deferred_shade": [_P, _I, _P, _P, _P, _I, _I, _P, _P, _I, _I, _I,
+                          _I, _I, _I, _P, _P],
 }
 
 
@@ -70,19 +72,33 @@ def library():
     so = out_dir / "libbevy_kernels.so"
     if not so.exists():
         out_dir.mkdir(parents=True, exist_ok=True)
-        tmp = out_dir / f"libbevy_kernels.{os.getpid()}.so"
+        tag = os.getpid()
+        tmp = out_dir / f"libbevy_kernels.{tag}.so"
+        objs = [out_dir / f"{Path(s).stem}.{tag}.o" for s in SOURCES]
         t0 = time.perf_counter()
-        res = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-             *[str(CSRC / s) for s in SOURCES]],
-            capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                               f"{res.stdout}\n{res.stderr}")
-        os.replace(tmp, so)
+        try:
+            procs = [subprocess.Popen(
+                [_nvcc(), *NVCC_FLAGS, "-c", "-o", str(o), str(CSRC / s)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                for s, o in zip(SOURCES, objs)]
+            logs = [p.communicate()[0] for p in procs]
+            for s, p, log in zip(SOURCES, procs, logs):
+                if p.returncode != 0:
+                    raise RuntimeError(f"nvcc failed on {s} "
+                                       f"({p.returncode}):\n{log}")
+            res = subprocess.run([_nvcc(), "-shared", "-o", str(tmp),
+                                  *map(str, objs)], capture_output=True,
+                                 text=True)
+            if res.returncode != 0:
+                raise RuntimeError(f"nvcc link failed ({res.returncode}):\n"
+                                   f"{res.stdout}\n{res.stderr}")
+            os.replace(tmp, so)
+        finally:
+            for f in (*objs, tmp):
+                f.unlink(missing_ok=True)
         _Loaded.build_seconds = time.perf_counter() - t0
-        _Loaded.ptxas_log = res.stderr
-        (out_dir / "ptxas.log").write_text(res.stderr)
+        _Loaded.ptxas_log = "".join(logs)
+        (out_dir / "ptxas.log").write_text(_Loaded.ptxas_log)
     lib = ctypes.CDLL(str(so))
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)

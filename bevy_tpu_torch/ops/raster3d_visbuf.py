@@ -9,6 +9,9 @@ ref: bevy's meshlet software raster, `bevy_pbr/src/meshlet/`).
 - `raster_visbuf`: the streaming-tile depth+id raster (kernel B2,
   `csrc/stream_raster.cu`, replacing `_stream_kernel` of the JAX package).
 - `pack_flat_shade` / `resolve_flat`: shade-once flat forward resolve.
+- `pack_flat_gbuf` / `resolve_gbuf_flat`: the flat deferred branch, one
+  16-wide (24 with specular tint) record per triangle and one gather
+  into the G-buffer planes.
 
 Conventions: reverse-z GREATER (clear 0), CCW front faces, y-down pixels,
 pixel centers at +0.5. Only the zrec (depth+id) half of the setup is
@@ -341,3 +344,57 @@ def resolve_flat(winner, flat_rec, color_planar):
     ok = winner >= 0
     rec = flat_rec[torch.clamp(winner, min=0)]         # (H, W, 8)
     return torch.where(ok[None], rec[..., 0:4].permute(2, 0, 1), color_planar)
+
+
+def pack_flat_gbuf(cn, materials, valid):
+    """Flat-mesh G-buffer records, one 16-wide table: [albedo rgba, normal
+    xyz, pad, emissive rgb, metallic, roughness, clearcoat, clearcoat
+    roughness, reflectance]; materials with specular tint (18+ columns)
+    append tint rgb + 5 pad (24 wide). materials (..., 9 or 15+): rgba,
+    emissive, metallic, roughness, clearcoat, ccr, anisotropy, anisotropy
+    rotation, parallax depth scale, reflectance[, tint rgb]. Leading dims
+    are batch dims (see pack_planes_h)."""
+    lead = cn.shape[:-2]
+    dev = cn.device
+    n = cn[..., 0, :]
+    n = n * torch.rsqrt(torch.clamp(torch.sum(n * n, -1, keepdim=True),
+                                    min=1e-12))
+    if materials.shape[-1] < 15:
+        pad = torch.zeros(lead + (15 - materials.shape[-1],),
+                          dtype=torch.float32, device=dev)
+        pad[..., -1] = 0.5                       # default reflectance
+        materials = torch.cat([materials, pad], -1)
+    parts = [materials[..., 0:4], n,
+             torch.zeros(lead + (1,), dtype=torch.float32, device=dev),
+             materials[..., 4:11], materials[..., 14:15]]
+    if materials.shape[-1] >= 18:
+        parts += [materials[..., 15:18],
+                  torch.zeros(lead + (5,), dtype=torch.float32, device=dev)]
+    ab = torch.cat(parts, -1)
+    return torch.where(valid[..., None], ab, torch.zeros_like(ab))
+
+
+def resolve_gbuf_flat(winner, frec, gbuf):
+    """G-buffer write from flat records: one row gather per pixel. Plane
+    order: albedo rgba 0:4, normal 4:7, emissive 7:10, metallic 10,
+    roughness 11, clearcoat 12, clearcoat roughness 13, anisotropy
+    tangent + strength 14:18 (zero: flat meshes shade isotropic),
+    reflectance 18, specular tint 19:22 (22-plane G-buffers).
+    winner == -1 keeps the incoming gbuf.
+
+    With 24-wide tinted records and 22 planes the JAX twin raises (its
+    concatenation makes 25 planes); here the tint fills planes 19:22."""
+    ok = winner >= 0
+    # gathered planar, from the transposed table: (16|24, H, W), contiguous
+    ab = frec.t()[:, torch.clamp(winner, min=0)]
+    nplanes = gbuf.shape[0]
+    planes = torch.cat([ab[0:7], ab[8:15]])                 # 14
+    if nplanes > 14:
+        planes = torch.cat([planes, torch.zeros(
+            (nplanes - 14,) + planes.shape[1:], dtype=planes.dtype,
+            device=planes.device)])
+    if nplanes >= 19:
+        planes[18] = ab[15]
+    if nplanes >= 22 and frec.shape[-1] >= 19:
+        planes[19:22] = ab[16:19]
+    return torch.where(ok[None], planes, gbuf)

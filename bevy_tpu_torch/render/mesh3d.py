@@ -1,6 +1,7 @@
-"""3D mesh rendering, the opaque flat-forward slice (port of
+"""3D mesh rendering, the opaque flat slice, forward or deferred (port of
 bevy_tpu/render/mesh3d.py; ref: bevy_pbr's mesh pipeline + meshlet
-visibility-buffer raster, Lambert directional + ambient).
+visibility-buffer raster, Lambert directional + ambient, or the G-buffer
+write of bevy's deferred path).
 
 Every mesh group renders as one uniform instanced batch: vertex transform
 by batched matmul, corner extraction by index gather, cluster cull,
@@ -8,13 +9,15 @@ clipless plane setup, window decomposition, then the two raster kernels —
 B1 window splat (ops/raster3d_splat.fused_eval_composite) for small
 clusters, B2 streaming tiles (ops/raster3d_visbuf.raster_visbuf) for giant
 and near-plane ones — into one depth + winner-id buffer, and a shade-once
-flat resolve.
+flat resolve (forward) or a one-gather G-buffer write (`deferred=True`;
+render/deferred.py shades it).
 
 Ported: the uniform-group, opaque, single full-frame camera, flat-forward
-branch of `make_mesh_pass`, with the instance sphere-frustum cull, the
-identity `run_phase` selection, two window classes and the compacted
-fallback. Every other feature of the JAX mesh pass raises
-NotImplementedError naming the ROADMAP item that brings it.
+and flat-deferred (`flat_def`) branches of `make_mesh_pass`, with the
+instance sphere-frustum cull, the identity `run_phase` selection, two
+window classes and the compacted fallback. Every other feature of the
+JAX mesh pass raises NotImplementedError naming the ROADMAP item that
+brings it.
 """
 
 from __future__ import annotations
@@ -36,13 +39,16 @@ from bevy_tpu_torch.ops.raster3d_splat import (
 )
 from bevy_tpu_torch.ops.raster3d_visbuf import (
     ZREC, bin_clusters, cluster_records, cluster_screen_aabbs,
-    pack_flat_shade, pack_planes_h, raster_visbuf, resolve_flat,
+    pack_flat_gbuf, pack_flat_shade, pack_planes_h, raster_visbuf,
+    resolve_flat, resolve_gbuf_flat,
 )
 from bevy_tpu_torch.render.camera import (
     Camera3d, perspective_infinite_reverse, pick_camera, view_matrix,
 )
 from bevy_tpu_torch.render.mesh import MeshPool
-from bevy_tpu_torch.render.plugin import PASS_SET, RenderTarget
+from bevy_tpu_torch.render.plugin import (
+    PASS_SET, RenderTarget, add_render_stats,
+)
 
 
 @component
@@ -58,9 +64,11 @@ class Mesh3d:
 @component
 class MeshMaterial:
     """StandardMaterial subset (ref: bevy_pbr/src/pbr_material.rs). The
-    same fields as the JAX package, so worlds convert column for column;
-    the flat-forward slice reads base_color, emissive, metallic and
-    perceptual_roughness and refuses worlds that set the others."""
+    same fields as the JAX package, so worlds convert column for column.
+    The flat-forward path reads base_color, emissive, metallic and
+    perceptual_roughness; the flat-deferred path also clearcoat,
+    clearcoat_roughness and reflectance. Both refuse worlds that set the
+    fields in _MATERIAL_GATES."""
     base_color = field(4, default=(1.0, 1.0, 1.0, 1.0))
     emissive = field(3)
     metallic = field(())
@@ -116,8 +124,8 @@ def _unported(feature, item):
         f"{feature} is not ported to bevy_tpu_torch yet (ROADMAP {item})")
 
 
-# MeshMaterial fields the flat-forward slice does not read, with the
-# default a world must keep and the ROADMAP item that brings each
+# MeshMaterial fields the flat paths do not read, with the default a world
+# must keep and the ROADMAP item that brings each
 _MATERIAL_GATES = (
     ("specular_transmission", 0.0, "transmission", "A8"),
     ("diffuse_transmission", 0.0, "transmission", "A8"),
@@ -125,7 +133,7 @@ _MATERIAL_GATES = (
     ("parallax_depth_scale", 0.0, "parallax mapping", "A5"),
     ("depth_bias", 0.0, "depth bias", "A8"),
     ("uv_transform", (1.0, 0.0, 0.0, 1.0, 0.0, 0.0), "uv transforms", "A5"),
-    ("specular_tint", (1.0, 1.0, 1.0), "specular tint", "A4"),
+    ("specular_tint", (1.0, 1.0, 1.0), "specular tint", "A4b"),
 )
 
 
@@ -210,19 +218,23 @@ def raster_batched(clip, nrm, batch, inst_ok, mat_inst, light_vec,
                    target, stats, *, width, height, tile_h=16, tile_w=128,
                    max_per_tile=512, cluster_size=12, win_h=32,
                    window_budget=65536, eval_tris=None,
-                   visible_budget=65536):
-    """Visibility-buffer raster of one uniform batch, flat-forward shaded.
+                   visible_budget=65536, deferred=False):
+    """Visibility-buffer raster of one uniform batch, flat shaded.
 
     clip (Ni, VC, 4) clip-space positions, nrm (Ni, VC, 3) world normals,
     batch the mesh's `uniform_batch` constants, inst_ok (Ni,) bool,
-    mat_inst (Ni, 9) [rgba, emissive, metallic, roughness]. Writes
-    target.depth and target.color (composed over the incoming color).
+    mat_inst (Ni, 9) [rgba, emissive, metallic, roughness] forward, or
+    (Ni, 15) with clearcoat, clearcoat roughness, anisotropy, anisotropy
+    rotation, parallax depth scale and reflectance when `deferred`.
+    Writes target.depth, and target.color (forward, composed over the
+    incoming color) or target.gbuffer (deferred, see resolve_gbuf_flat).
 
     Profiler spans (torch.profiler): mesh:setup, mesh:windows,
     mesh:splat_B1, mesh:fallback_bin, mesh:stream_B2, mesh:resolve."""
     with span("mesh:setup"):
         setup = _setup(clip, nrm, batch, inst_ok, mat_inst, light_vec,
-                       width, height, cluster_size, eval_tris, visible_budget)
+                       width, height, cluster_size, eval_tris, visible_budget,
+                       deferred)
     aabb, cl_valid, zmax, zrec, frec, rec_rows, nslots, nedge, k = setup
     cs = cluster_size
     dev = clip.device
@@ -280,14 +292,19 @@ def raster_batched(clip, nrm, batch, inst_ok, mat_inst, light_vec,
     stats.tile_overflow = stats.tile_overflow + st["tile_overflow"]
     target.depth = depth
     with span("mesh:resolve"):
-        target.color = resolve_flat(winner.to(torch.int32), frec,
-                                    target.color)
+        if deferred:
+            target.gbuffer = resolve_gbuf_flat(winner.to(torch.int32), frec,
+                                               target.gbuffer)
+        else:
+            target.color = resolve_flat(winner.to(torch.int32), frec,
+                                        target.color)
 
 
 def _setup(clip, nrm, batch, inst_ok, mat_inst, light_vec, width, height,
-           cs, eval_tris, visible_budget):
+           cs, eval_tris, visible_budget, deferred):
     """Corner extraction, cluster cull, clipless plane setup, flat shade
-    records and the window kernel's record rows of one uniform batch."""
+    (forward) or G-buffer (deferred) records and the window kernel's
+    record rows of one uniform batch."""
     dev = clip.device
     ni = clip.shape[0]
     tri_idx = batch["tris"]
@@ -308,11 +325,16 @@ def _setup(clip, nrm, batch, inst_ok, mat_inst, light_vec, width, height,
     # -- run_phase, identity selection: every cluster is a candidate, its
     #    triangles valid where the cluster is (padding triangles are
     #    degenerate and fail pack_planes_h's guards)
-    mat_tri = mat_inst[:, None, None, :].expand(ni, cc_num, cs, 9) \
-        .reshape(n_cl, cs, 9)
+    nm = mat_inst.shape[1]
+    mat_tri = mat_inst[:, None, None, :].expand(ni, cc_num, cs, nm) \
+        .reshape(n_cl, cs, nm)
     zrec, valid = pack_planes_h(cc, cn, cl_valid[:, None].expand(n_cl, cs),
                                 width, height)
-    frec = pack_flat_shade(cn, mat_tri, light_vec, valid).reshape(n_cl * cs, 8)
+    if deferred:
+        frec = pack_flat_gbuf(cn, mat_tri, valid)
+    else:
+        frec = pack_flat_shade(cn, mat_tri, light_vec, valid)
+    frec = frec.reshape(n_cl * cs, frec.shape[-1])
     ntri_f = cs if eval_tris is None else min(eval_tris, cs)
     quads = batch["quads"]
     if quads is not None:
@@ -357,7 +379,8 @@ def _frustum_cull(batch, gt_t, gt_r, gt_s, inst_ok, view, fov, near, aspect,
 
 def make_mesh_pass(width, height, plugin, tile_h=32, tile_w=128,
                    max_per_tile=256, win_h=32, window_budget=65536,
-                   eval_tris=None, visible_budget=65536, cull_budget=None):
+                   eval_tris=None, visible_budget=65536, cull_budget=None,
+                   deferred=False):
     from bevy_tpu_torch.transform import GlobalTransform
 
     @system(name="mesh_pass")
@@ -407,15 +430,20 @@ def make_mesh_pass(width, height, plugin, tile_h=32, tile_w=128,
                 mvp = torch.einsum("ij,njk->nik", vp, mats)
                 clip = torch.einsum("nij,vj->nvi", mvp, grp["ph"])  # (Ni,VC,4)
                 nrm = quat_rotate_vec3(gt_r[:, None, :], grp["normals"][None])
-            mat_inst = torch.cat([mm.base_color[rows], mm.emissive[rows],
-                                  mm.metallic[rows][:, None],
-                                  mm.perceptual_roughness[rows][:, None]], 1)
+            cols = [mm.base_color[rows], mm.emissive[rows],
+                    mm.metallic[rows][:, None],
+                    mm.perceptual_roughness[rows][:, None]]
+            if deferred:
+                cols += [getattr(mm, f)[rows][:, None] for f in (
+                    "clearcoat", "clearcoat_roughness", "anisotropy_strength",
+                    "anisotropy_rotation", "parallax_depth_scale",
+                    "reflectance")]
             raster_batched(
-                clip, nrm, grp, inst_ok, mat_inst, lv, target, stats,
-                width=width, height=height, tile_h=tile_h, tile_w=tile_w,
-                max_per_tile=max_per_tile, win_h=win_h,
+                clip, nrm, grp, inst_ok, torch.cat(cols, 1), lv, target,
+                stats, width=width, height=height, tile_h=tile_h,
+                tile_w=tile_w, max_per_tile=max_per_tile, win_h=win_h,
                 window_budget=window_budget, eval_tris=eval_tris,
-                visible_budget=visible_budget)
+                visible_budget=visible_budget, deferred=deferred)
 
     return mesh_pass
 
@@ -432,7 +460,6 @@ class Mesh3dPlugin(Plugin):
                  shards=None, bvh_cull=False, motion_vectors=False):
         for on, feature, item in (
                 (backend == "xla", "the XLA reference raster backend", "A3"),
-                (deferred, "deferred lighting", "A4"),
                 (atlas is not None, "textured materials", "A5"),
                 (occlusion_cull, "two-phase occlusion culling", "A8"),
                 (material_fn is not None, "custom materials", "A8"),
@@ -442,14 +469,15 @@ class Mesh3dPlugin(Plugin):
             if on:
                 raise _unported(feature, item)
         # pairs_per_tri and the pallas/interpret backends have no effect:
-        # the kernel route follows the device of the tensors
+        # the kernel route follows the device of the tensors. deferred=True
+        # writes the G-buffer that DeferredLightingPlugin creates and shades
         self.pool = pool or MeshPool()
         self._groups = None
         self.cfg = dict(tile_h=tile_h, tile_w=tile_w,
                         max_per_tile=max_per_tile, win_h=win_h,
                         window_budget=window_budget, eval_tris=eval_tris,
                         visible_budget=visible_budget,
-                        cull_budget=cull_budget)
+                        cull_budget=cull_budget, deferred=deferred)
 
     def add_mesh(self, mesh, lods: int = 1) -> int:
         if lods > 1:
@@ -467,11 +495,8 @@ class Mesh3dPlugin(Plugin):
                   Transform, GlobalTransform):
             app.world.register_component(c)
         app.init_resource(AmbientLight())
-        if "render_stats" not in app.world.state["res"]:
-            zero = torch.zeros((), dtype=torch.int32, device=app.device)
-            app.insert_resource("render_stats", {
-                "pair_overflow": zero, "tile_overflow": zero,
-                "fallback_clusters": zero})
+        add_render_stats(app, "pair_overflow", "tile_overflow",
+                         "fallback_clusters")
         plugin = self
 
         def finish_pool(world):

@@ -33,7 +33,8 @@ class ClearColor:
 # Render-schedule system sets (ref: RenderSystems, lib.rs:158-212)
 CLEAR_SET = "render:clear"
 QUEUE_SET = "render:queue"
-PASS_SET = "render:pass"        # 3D geometry passes
+PASS_SET = "render:pass"        # 3D geometry passes (forward or G-buffer)
+SHADE_SET = "render:shade"      # deferred lighting resolve
 
 
 @system(name="clear_render_target")
@@ -63,7 +64,18 @@ class RenderPlugin(Plugin):
         sched.configure_set(CLEAR_SET)
         sched.configure_set(QUEUE_SET, after=CLEAR_SET)
         sched.configure_set(PASS_SET, after=[CLEAR_SET, QUEUE_SET])
+        sched.configure_set(SHADE_SET, after=[CLEAR_SET, PASS_SET])
         app.add_systems(Render, clear_render_target, in_set=CLEAR_SET)
+
+
+def add_render_stats(app, *keys):
+    """Add int32 zero counters `keys` (where missing) to the render_stats
+    resource, which the geometry and lighting plugins share."""
+    zero = torch.zeros((), dtype=torch.int32, device=app.device)
+    stats = dict(app.world.state["res"].get("render_stats", {}))
+    for k in keys:
+        stats.setdefault(k, zero)
+    app.insert_resource("render_stats", stats)
 
 
 def frame_image(app) -> np.ndarray:

@@ -2,7 +2,8 @@
 
     python3 chip_smoke.py
 
-Builds the CUDA kernels from `bevy_tpu_torch/csrc/`, then:
+Builds the CUDA kernels from `bevy_tpu_torch/csrc/` (one nvcc process a
+source, all started together), then:
 1. holds the window-splat (B1) and streaming-tile (B2) kernels against
    their plain PyTorch versions, bit for bit, on a scene with both window
    classes and on one with giant and near-plane clusters;
@@ -11,15 +12,34 @@ Builds the CUDA kernels from `bevy_tpu_torch/csrc/`, then:
    (under 1% of pixels may drift by more than 8);
 3. runs the full-size many_cubes frame (160,000 cubes, 1280x720), times 20
    frames with CUDA events and checks both kernels were launched;
-4. times each kernel against its plain version at the full-size shapes.
+4. times B1 and B2 against their plain versions at the full-size shapes;
+5. renders the many_lights twin at the golden configuration (48 lights,
+   256x144, 1 frame) against tests/goldens/lights_f1.png, holding B1 and
+   B2 (bit for bit) and the deferred shade B3 (rtol 1e-5, atol 1e-5) against
+   their plain versions on every call;
+6. shades a small scene with spot and rect lights, clearcoat and a
+   non-default reflectance (the other B3 instantiations), B3 against plain;
+7. runs the full-size many_lights frame (100,000 point lights, 1,024 cubes
+   and the floor, 1280x720), times 20 frames with CUDA events, checks B1, B2
+   and B3 were launched (B3 once a frame), that light_pair_overflow and the
+   mesh pass's own tile overflow are 0;
+8. holds B1 and B2 (bit for bit) against their plain versions on every call
+   of one full-size many_lights frame, and times B3 against its plain
+   version at that frame's shapes.
 
-The last two lines of standard output are a JSON object of kernel results
-and the card's result line. Any failure raises; there is no CPU fallback.
+Each kernel's bound (the least time the card could take for the same work:
+the larger of its bytes over 3.35 TB/s and its FP32 operations over 67
+TFLOP/s, counted from this run's inputs) is printed beside its time.
+
+The last three lines of standard output are a JSON object of kernel
+results, the card's name and power limit (nvidia-smi), and the card's
+result line. Any failure raises; there is no CPU fallback.
 """
 
 from __future__ import annotations
 
 import json
+import re
 import struct
 import subprocess
 import sys
@@ -32,12 +52,20 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 GOLDEN = ROOT / "tests" / "goldens" / "cubes_splat_f2.png"
+LIGHTS_GOLDEN = ROOT / "tests" / "goldens" / "lights_f1.png"
+LIGHTS_GOLDEN_KW = dict(n_lights=48, n_cubes=16, width=256, height=144,
+                        capacity=256, camera=(0.0, 9.0, 22.0))
 KERNELS = {
     "B1": ("fused_eval_composite", "bevy_tpu_torch/csrc/splat_raster.cu",
            "bevy_tpu/ops/raster3d_splat.py:589"),
     "B2": ("raster_visbuf", "bevy_tpu_torch/csrc/stream_raster.cu",
            "bevy_tpu/ops/raster3d_visbuf.py:382"),
+    "B3": ("deferred_shade", "bevy_tpu_torch/csrc/deferred_shade.cu",
+           "bevy_tpu/ops/shade_pallas.py:99"),
 }
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
+FP32_FLOPS = 67e12             # H100 SXM, FP32 outside the tensor cores
+SHADE_TOL = dict(rtol=1e-5, atol=1e-5)
 
 
 def log(*a):
@@ -92,43 +120,65 @@ def read_png_rgba8(path):
 
 
 class Recorder:
-    """Wraps the mesh pass's two kernel entry points to keep the arguments
-    of every call (for the kernel-vs-plain comparisons)."""
+    """Wraps the kernel entry points where the render modules call them
+    (mesh3d: B1, B2; deferred: B3) to keep the arguments of every call
+    (for the kernel-vs-plain comparisons)."""
 
-    def __init__(self, mesh3d):
-        self.mesh3d = mesh3d
-        self.calls = {"B1": [], "B2": []}
-        self.orig = {"B1": mesh3d.fused_eval_composite,
-                     "B2": mesh3d.raster_visbuf}
+    def __init__(self):
+        from bevy_tpu_torch.render import deferred, mesh3d
+        self.sites = {"B1": mesh3d, "B2": mesh3d, "B3": deferred}
+        self.calls = {kid: [] for kid in self.sites}
+        self.orig = {kid: getattr(mod, KERNELS[kid][0])
+                     for kid, mod in self.sites.items()}
 
     def __enter__(self):
         for kid, fn in self.orig.items():
             def rec(*a, _k=kid, _f=fn, **kw):
                 self.calls[_k].append((a, kw))
                 return _f(*a, **kw)
-            setattr(self.mesh3d, KERNELS[kid][0], rec)
+            setattr(self.sites[kid], KERNELS[kid][0], rec)
         return self
 
     def __exit__(self, *exc):
         for kid, fn in self.orig.items():
-            setattr(self.mesh3d, KERNELS[kid][0], fn)
+            setattr(self.sites[kid], KERNELS[kid][0], fn)
 
 
 def plain_fn(kid):
-    from bevy_tpu_torch.ops import raster3d_splat, raster3d_visbuf
+    from bevy_tpu_torch.ops import raster3d_splat, raster3d_visbuf, shade
     return {"B1": raster3d_splat._fused_plain,
-            "B2": raster3d_visbuf._raster_visbuf_plain}[kid]
+            "B2": raster3d_visbuf._raster_visbuf_plain,
+            "B3": shade._deferred_shade_plain}[kid]
 
 
 def kernel_fn(kid):
-    from bevy_tpu_torch.ops import raster3d_splat, raster3d_visbuf
+    from bevy_tpu_torch.ops import raster3d_splat, raster3d_visbuf, shade
     return {"B1": raster3d_splat.fused_eval_composite,
-            "B2": raster3d_visbuf.raster_visbuf}[kid]
+            "B2": raster3d_visbuf.raster_visbuf,
+            "B3": shade.deferred_shade}[kid]
+
+
+def reset_launches():
+    for kid in KERNELS:
+        kernel_fn(kid).launches = 0
+
+
+def read_launches():
+    return {kid: kernel_fn(kid).launches for kid in KERNELS}
 
 
 def compare(kid, a, kw):
-    """Kernel vs plain on one recorded call; asserts bit equality of depth
-    and winner, returns the max abs error."""
+    """Kernel vs plain on one recorded call. B1/B2: asserts bit equality
+    of depth and winner; B3: asserts rtol/atol SHADE_TOL. Returns the max
+    abs error (and, for B3, the max relative error)."""
+    if kid == "B3":
+        ck = kernel_fn(kid)(*a, **kw)
+        cp = plain_fn(kid)(*a, **kw)
+        torch.cuda.synchronize()
+        err = float((ck - cp).abs().max())
+        rel = float(((ck - cp).abs() / cp.abs().clamp(min=1e-6)).max())
+        torch.testing.assert_close(ck, cp, **SHADE_TOL)
+        return err, rel
     dk, wk = kernel_fn(kid)(*a, **kw)
     dp, wp = plain_fn(kid)(*a, **kw)
     torch.cuda.synchronize()
@@ -154,6 +204,109 @@ def cuda_ms(fn, reps):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def _bound(nbytes, flops):
+    """(bound ms, "bytes" or "operations") on one H100 SXM."""
+    tb, tf = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS
+    return max(tb, tf) * 1e3, ("bytes" if tb >= tf else "operations")
+
+
+def bound_b1(a, kw):
+    """B1: depth and winner read and written once, the record rows of the
+    valid windows' owners, 9 B of window data each; per pixel of each valid
+    window and record slot, nedge edge tests (2 mul, 2 add, 1 compare) and
+    a depth plane (2 mul, 2 add) with its compare."""
+    depth, _, rec_rows, owner, _, wvalid = a
+    npx = depth.numel()
+    used = torch.unique(owner[wvalid.bool()])
+    row_b = rec_rows.shape[1] * rec_rows.shape[2] * 4
+    nbytes = 16 * npx + used.numel() * row_b + 9 * owner.numel()
+    nwin = int(wvalid.sum())
+    flops = nwin * kw["win_h"] * 128 * kw["ntri"] * (5 * kw["nedge"] + 5)
+    return _bound(nbytes, flops)
+
+
+def bound_b2(a, kw):
+    """B2: depth and winner read and written once, the listed clusters'
+    record rows and table entries; per (tile, listed triangle) a 5-compare
+    AABB test, and for each that passes, per tile pixel 3 edge planes and a
+    depth plane (2 mul, 2 add each) and 4 compares."""
+    depth, _, recs, cl_table, cl_counts = a
+    cs, th, tw = kw["cs"], kw["tile_h"], kw["tile_w"]
+    nt, max_cl = cl_table.shape
+    live = (torch.arange(max_cl, device=depth.device)[None, :]
+            < cl_counts[:, None]) & (cl_table >= 0)
+    ids = cl_table.clamp(min=0).long()
+    tri = recs[ids][..., :cs * 20].reshape(nt, max_cl, cs, 20)
+    ntx = (depth.shape[1] + tw - 1) // tw
+    t = torch.arange(nt, device=depth.device)
+    tx0 = ((t % ntx) * tw).float()[:, None, None]
+    ty0 = ((t // ntx) * th).float()[:, None, None]
+    hit = live[..., None] & (tri[..., 12] >= 0) & (tri[..., 15] > tx0) & \
+        (tri[..., 13] < tx0 + tw) & (tri[..., 16] > ty0) & \
+        (tri[..., 14] < ty0 + th)
+    nlisted = int(live.sum())
+    nbytes = 16 * depth.numel() + 4 * (nlisted + nt) + \
+        torch.unique(ids[live]).numel() * recs.shape[1] * 4
+    flops = 5 * nlisted * cs + int(hit.sum()) * th * tw * 20
+    return _bound(nbytes, flops)
+
+
+def bound_b3(a, kw):
+    """B3: the planes its variant reads, depth, the shadow plane if any,
+    the light records of every listed light, and 4 output planes, once
+    each. Operations, FP32, counted from csrc/deferred_shade.cu (rsqrt,
+    sqrt and division count 1; a common subexpression and a negation that
+    folds into its user count 0):
+    - per geometry pixel, the setup: world position, view vector,
+      material terms, every term that depends on the pixel alone (a2 - 1,
+      1 - alpha, nov * (1 - alpha) + alpha, 1 - f0), the directional
+      light and the output: 158 (+26 clearcoat, +81 anisotropy, +2
+      reflectance, +5 specular tint);
+    - per listed (tile, light), the terms of the light alone (range²): 2
+      (+1 rect);
+    - per (geometry pixel, listed light that passes the tile side-plane
+      test), the light body: 94 (+11 spot, +33 rect, +21 clearcoat, +33
+      anisotropy)."""
+    from bevy_tpu_torch.ops import shade
+    gbuf, depth, table, counts, params, shadow = a
+    v = {k: kw.get(k, d) for k, d in (("spot", True), ("rect", False),
+                                      ("clearcoat", True),
+                                      ("anisotropy", False),
+                                      ("reflectance", False),
+                                      ("specular_tint", False))}
+    th, tw = kw.get("tile_h", 32), kw.get("tile_w", 128)
+    H, W = depth.shape
+    nty, ntx = (H + th - 1) // th, (W + tw - 1) // tw
+    nt, nf, mpt = table.shape
+    planes = 12 + 2 * v["clearcoat"] + 4 * v["anisotropy"] + \
+        v["reflectance"] + 3 * v["specular_tint"]
+    cnt = counts.clamp(max=mpt)
+    nbytes = 4 * H * W * (planes + 1 + (shadow is not None) + 4) + \
+        4 * nf * int(cnt.sum()) + 4 * nt + 160
+    pad = torch.nn.functional.pad(depth, (0, ntx * tw - W, 0, nty * th - H))
+    geom = (pad.reshape(nty, th, ntx, tw) > 0).sum((1, 3)).reshape(nt)
+    if v["rect"]:
+        nlit = cnt
+    else:
+        sp = shade.tile_side_planes(params, nty, ntx, th, tw)
+        nlit = torch.zeros(nt, dtype=torch.int64, device=depth.device)
+        for s in range(int(cnt.max())):
+            nlit += (s < cnt) & shade.light_in_tile(sp, table[:, :, s],
+                                                    params)
+    body = 94 + 11 * v["spot"] + 33 * v["rect"] + 21 * v["clearcoat"] + \
+        33 * v["anisotropy"]
+    setup = 158 + 26 * v["clearcoat"] + 81 * v["anisotropy"] + \
+        2 * v["reflectance"] + 5 * v["specular_tint"]
+    per_light = 2 + v["rect"]
+    evals = int((geom * nlit).sum())
+    ops = evals * body + int(geom.sum()) * setup + \
+        int(cnt.sum()) * per_light
+    return _bound(nbytes, ops) + (evals,)
+
+
+BOUNDS = {"B1": bound_b1, "B2": bound_b2, "B3": bound_b3}
 
 
 def near_plane_app(device):
@@ -193,6 +346,107 @@ def near_plane_app(device):
     return app
 
 
+def check_golden(img, path):
+    img = img.astype(int)
+    golden = read_png_rgba8(path)
+    if img.shape != golden.shape:
+        raise AssertionError(f"golden shape {golden.shape} != {img.shape}")
+    diff = np.abs(golden - img).max(-1)
+    frac = float((diff > 8).mean())
+    log(f"golden {path.stem}: {frac:.4%} of pixels drift > 8 "
+        f"(max channel diff {diff.max()})")
+    if frac >= 0.01:
+        raise AssertionError(f"golden {path.stem} failed")
+
+
+def check_stats(state, keys):
+    stats = {k: int(v) for k, v in state["res"]["render_stats"].items()}
+    bad = {k: stats[k] for k in keys if stats[k] != 0}
+    if bad:
+        raise AssertionError(f"overflow counters not 0: {bad}")
+
+
+def timed_frames(app, n):
+    """3 warm frames, then `n` frames timed with CUDA events, with the
+    launch counts set to 0 just before and read just after. Returns
+    ms/frame, launches, render_stats over the n frames and the
+    covered-pixel share; raises unless colour and depth are finite."""
+    step = app.frame_fn()
+    state = app.world.state
+    for _ in range(3):
+        state = step(state)
+    torch.cuda.synchronize()
+    stats0 = {k: int(v) for k, v in state["res"]["render_stats"].items()}
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    reset_launches()
+    start.record()
+    for _ in range(n):
+        state = step(state)
+    end.record()
+    torch.cuda.synchronize()
+    launches = read_launches()
+    app.world.state = state
+    stats = {k: int(v) - stats0[k]
+             for k, v in state["res"]["render_stats"].items()}
+    color = state["res"]["render_target"]["color"]
+    depth = state["res"]["render_target"]["depth"]
+    if not (torch.isfinite(color).all() and torch.isfinite(depth).all()):
+        raise AssertionError("full-size frame is not finite")
+    covered = float((depth > 0).float().mean())
+    return start.elapsed_time(end) / n, launches, stats, covered
+
+
+def time_kernel(kid, a, kw, launches, err):
+    """Kernel vs plain time (CUDA events, 20 and 3 launches) and the bound
+    at one recorded call; the kernels-line entry."""
+    k_ms = cuda_ms(lambda: kernel_fn(kid)(*a, **kw), 20)
+    p_ms = cuda_ms(lambda: plain_fn(kid)(*a, **kw), 3)
+    b = BOUNDS[kid](a, kw)
+    b_ms, by = b[0], b[1]
+    extra = f", {b[2]} (pixel, light) evaluations" if len(b) > 2 else ""
+    log(f"{kid} {KERNELS[kid][0]} at full size: kernel {k_ms:.4f} ms, "
+        f"plain {p_ms:.4f} ms, bound {b_ms:.4f} ms ({by}{extra}), "
+        f"{b_ms / k_ms:.1%} of the bound")
+    name, source, replaces = KERNELS[kid]
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches, "max_abs_err": err,
+            "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": by,
+            "library_ms": None}
+
+
+def variants_app(device):
+    """The lights golden scene plus spot lights, rect lights and a
+    clearcoat cube with a non-default reflectance: the B3 instantiation
+    with spot, rect, clearcoat and reflectance on (24-field records)."""
+    import torch_many_lights
+    from bevy_tpu_torch.render.deferred import RectLight, SpotLight
+    from bevy_tpu_torch.render.mesh3d import Mesh3d, MeshMaterial
+    from bevy_tpu_torch.transform import transform_bundle
+
+    app = torch_many_lights.build_app(device=device, n_lights=24, n_cubes=9,
+                                      width=256, height=144, capacity=128,
+                                      camera=(0.0, 9.0, 22.0))
+    down = (-0.7071068, 0.0, 0.0, 0.7071068)      # -Z turned to -Y
+    for i, x in enumerate((-6.0, 0.0, 6.0)):
+        app.world.spawn(SpotLight(color=(1.0, 0.6, 0.3), intensity=6.0,
+                                  range=12.0, inner_angle=0.2 + 0.1 * i,
+                                  outer_angle=0.6),
+                        *transform_bundle(translation=(x, 4.0, 2.0),
+                                          rotation=down))
+        app.world.spawn(RectLight(color=(0.3, 0.7, 1.0), intensity=4.0,
+                                  range=10.0, width=2.0, height=1.0 + i),
+                        *transform_bundle(translation=(x, 3.0, -4.0),
+                                          rotation=down))
+    app.world.spawn(Mesh3d(mesh=0),
+                    MeshMaterial(base_color=(0.9, 0.2, 0.2, 1.0),
+                                 clearcoat=1.0, clearcoat_roughness=0.2,
+                                 reflectance=0.8, perceptual_roughness=0.3),
+                    *transform_bundle(translation=(0.0, 1.0, 6.0),
+                                      scale=(2.0, 2.0, 2.0)))
+    return app
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py: torch.cuda.is_available() is false "
@@ -200,8 +454,9 @@ def main():
     sys.path.insert(0, str(ROOT))
     sys.path.insert(0, str(ROOT / "examples"))
     import torch_many_cubes
-    from bevy_tpu_torch.ops import _cuda, raster3d_splat, raster3d_visbuf
-    from bevy_tpu_torch.render import frame_image, mesh3d
+    import torch_many_lights
+    from bevy_tpu_torch.ops import _cuda
+    from bevy_tpu_torch.render import frame_image
 
     dev = torch.device("cuda")
     smi = subprocess.run(
@@ -219,18 +474,31 @@ def main():
     _cuda.library()
     log(f"kernel build: {time.perf_counter() - t0:.2f} s "
         f"(nvcc {_cuda._Loaded.build_seconds} s, dir {_cuda.build_dir()})")
+    entry = None
+    regs = {}
     for ln in _cuda._Loaded.ptxas_log.splitlines():
-        if "registers" in ln or "Compiling entry" in ln:
-            log("  ptxas:", ln.strip())
+        if "Compiling entry" in ln:
+            entry = ln.split("'")[1]
+        elif "registers" in ln and entry is not None:
+            kind = next((k for k in ("splat_windows", "decode_keys",
+                                     "init_keys", "stream_tiles", "shade")
+                         if k in entry), entry)
+            regs.setdefault(kind, []).append(
+                int(ln.split("Used ")[1].split()[0]))
+    for kind, r in regs.items():
+        log(f"  ptxas: {kind}: {len(r)} entries, {min(r)}-{max(r)} "
+            f"registers")
+    spills = re.findall(r"(\d+) bytes spill stores", _cuda._Loaded.ptxas_log)
+    log(f"  ptxas: {sum(int(x) > 0 for x in spills)} entries spill")
 
     # -- kernels vs plain, golden scene and near-plane scene ------------
     golden_app = torch_many_cubes.build_app(
         n_cubes=300, width=320, height=180, capacity=512,
         window_budget=4096, device=dev)
-    with Recorder(mesh3d) as rec_golden:
+    with Recorder() as rec_golden:
         golden_app.run(max_frames=2, dt=1 / 60)
     near_app = near_plane_app(dev)
-    with Recorder(mesh3d) as rec_near:
+    with Recorder() as rec_near:
         near_app.run(max_frames=1, dt=1 / 60)
     torch.cuda.synchronize()
     b2_lists = sum(int(a[4].sum()) for a, _ in rec_near.calls["B2"])
@@ -245,46 +513,13 @@ def main():
     torch.cuda.synchronize()
 
     # -- golden image --------------------------------------------------
-    img = frame_image(golden_app).astype(int)
-    golden = read_png_rgba8(GOLDEN)
-    if img.shape != golden.shape:
-        raise AssertionError(f"golden shape {golden.shape} != {img.shape}")
-    diff = np.abs(golden - img).max(-1)
-    frac = float((diff > 8).mean())
-    log(f"golden cubes_splat_f2: {frac:.4%} of pixels drift > 8 "
-        f"(max channel diff {diff.max()})")
-    if frac >= 0.01:
-        raise AssertionError("golden cubes_splat_f2 failed")
+    check_golden(frame_image(golden_app), GOLDEN)
     torch.cuda.synchronize()
 
     # -- full size: 160k cubes at 1280x720 -----------------------------
-    app = torch_many_cubes.build_app(device=dev)
-    step = app.frame_fn()
-    state = app.world.state
-    for _ in range(3):
-        state = step(state)
-    torch.cuda.synchronize()
-    stats0 = {k: int(v) for k, v in state["res"]["render_stats"].items()}
     n = 20
-    raster3d_splat.fused_eval_composite.launches = 0
-    raster3d_visbuf.raster_visbuf.launches = 0
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(n):
-        state = step(state)
-    end.record()
-    torch.cuda.synchronize()
-    launches = {"B1": raster3d_splat.fused_eval_composite.launches,
-                "B2": raster3d_visbuf.raster_visbuf.launches}
-    ms = start.elapsed_time(end) / n
-    stats = {k: int(v) - stats0[k]
-             for k, v in state["res"]["render_stats"].items()}
-    color = state["res"]["render_target"]["color"]
-    depth = state["res"]["render_target"]["depth"]
-    if not (torch.isfinite(color).all() and torch.isfinite(depth).all()):
-        raise AssertionError("full-size frame is not finite")
-    covered = float((depth > 0).float().mean())
+    app = torch_many_cubes.build_app(device=dev)
+    ms, launches, stats, covered = timed_frames(app, n)
     log(f"many_cubes 160000 @1280x720: {ms:.3f} ms/frame over {n} frames "
         f"(CUDA events; {smi})")
     log(f"launches in those {n} frames: B1 {launches['B1']}, "
@@ -292,32 +527,100 @@ def main():
         f"{stats['fallback_clusters'] / n:.1f}/frame; pair_overflow "
         f"{stats['pair_overflow']}, tile_overflow {stats['tile_overflow']}; "
         f"covered pixels {covered:.3f}")
-    if min(launches.values()) == 0:
-        raise AssertionError(f"a kernel of the path never launched: {launches}")
+    if launches["B1"] == 0 or launches["B2"] == 0:
+        raise AssertionError(f"a kernel of the path never launched: "
+                             f"{launches}")
     if stats["fallback_clusters"] == 0:
         raise AssertionError("no fallback cluster reached B2 at full size")
     if covered < 0.05:
         raise AssertionError("full-size frame drew (almost) nothing")
 
     # -- per kernel at the full-size shapes: parity + time ---------------
-    with Recorder(mesh3d) as rec_full:
-        state = step(state)
+    with Recorder() as rec_full:
+        app.update(dt=1 / 60)
     torch.cuda.synchronize()
-    results = []
+    results = {}
     for kid in ("B1", "B2"):
         a, kw = rec_full.calls[kid][-1]
-        err = compare(kid, a, kw)
-        k_ms = cuda_ms(lambda: kernel_fn(kid)(*a, **kw), 20)
-        p_ms = cuda_ms(lambda: plain_fn(kid)(*a, **kw), 3)
-        log(f"{kid} {KERNELS[kid][0]} at full size: kernel {k_ms:.4f} ms, "
-            f"plain {p_ms:.4f} ms, bit-equal")
-        name, source, replaces = KERNELS[kid]
-        results.append({"name": name, "route": "cuda", "source": source,
-                        "replaces": replaces, "launches": launches[kid],
-                        "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms})
+        results[kid] = time_kernel(kid, a, kw, launches[kid], compare(kid, a,
+                                                                      kw))
+    del app, rec_full, golden_app, near_app, rec_golden, rec_near
+    torch.cuda.empty_cache()
+
+    # -- many_lights golden scene: B1, B2, B3 vs plain + image -----------
+    lapp = torch_many_lights.build_app(device=dev, **LIGHTS_GOLDEN_KW)
+    with Recorder() as rec_lg:
+        lapp.update(dt=1 / 60)
+    torch.cuda.synchronize()
+    for kid in ("B1", "B2", "B3"):
+        errs = [compare(kid, a, kw) for a, kw in rec_lg.calls[kid]]
+        if not errs:
+            raise AssertionError(f"the lights golden scene never called {kid}")
+        if kid == "B3":
+            log(f"B3 vs plain, lights golden scene: {len(errs)} calls within "
+                f"rtol/atol 1e-5 (max abs err {max(e[0] for e in errs)}, max "
+                f"rel err {max(e[1] for e in errs)})")
+        else:
+            log(f"{kid} vs plain, lights golden scene: {len(errs)} calls "
+                f"bit-equal (max abs err {max(errs)})")
+    check_golden(frame_image(lapp), LIGHTS_GOLDEN)
+    check_stats(lapp.world.state, ("light_pair_overflow",
+                                   "light_tile_overflow"))
+
+    # -- variants scene: spot, rect, clearcoat, reflectance --------------
+    vapp = variants_app(dev)
+    with Recorder() as rec_v:
+        vapp.update(dt=1 / 60)
+    torch.cuda.synchronize()
+    for a, kw in rec_v.calls["B3"]:
+        on = [k for k in ("spot", "rect", "clearcoat", "reflectance")
+              if kw.get(k)]
+        if len(on) != 4:
+            raise AssertionError(f"variants scene shaded with only {on}")
+        err = compare("B3", a, kw)
+        log(f"B3 vs plain, variants scene ({'+'.join(on)}, F="
+            f"{a[2].shape[1]}): within rtol/atol 1e-5 (max abs err "
+            f"{err[0]}, max rel err {err[1]})")
+    del lapp, vapp, rec_lg, rec_v
+
+    # -- many_lights at full size: 100k lights, 1280x720 ----------------
+    app = torch_many_lights.build_app(device=dev)
+    ms, launches, stats, covered = timed_frames(app, n)
+    log(f"many_lights 100000 @1280x720: {ms:.3f} ms/frame over {n} frames "
+        f"(CUDA events; {smi})")
+    log(f"launches in those {n} frames: B1 {launches['B1']}, B2 "
+        f"{launches['B2']}, B3 {launches['B3']}; light_pair_overflow "
+        f"{stats['light_pair_overflow']}, light_tile_overflow "
+        f"{stats['light_tile_overflow']} ({stats['light_tile_overflow'] / n}"
+        f"/frame); fallback clusters to B2 {stats['fallback_clusters'] / n}"
+        f"/frame; covered pixels {covered:.3f}")
+    if min(launches.values()) == 0 or launches["B3"] != n:
+        raise AssertionError(f"launches on the many_lights path: {launches}")
+    if stats["light_pair_overflow"] != 0:
+        raise AssertionError("light pairs overflowed their cap at full size")
+    # the shared tile_overflow counter also takes the lights' share
+    mesh_tile_overflow = stats["tile_overflow"] - stats["light_tile_overflow"]
+    if mesh_tile_overflow != 0:
+        raise AssertionError(f"the mesh pass's tile lists overflowed: "
+                             f"{mesh_tile_overflow}")
+    if covered < 0.5:
+        raise AssertionError("full-size many_lights frame drew too little")
+    with Recorder() as rec_full:
+        app.update(dt=1 / 60)
+    torch.cuda.synchronize()
+    for kid in ("B1", "B2"):
+        errs = [compare(kid, a, kw) for a, kw in rec_full.calls[kid]]
+        log(f"{kid} vs plain, many_lights full size: {len(errs)} calls "
+            f"bit-equal (max abs err {max(errs)})")
+    a, kw = rec_full.calls["B3"][-1]
+    err = compare("B3", a, kw)
+    log(f"B3 at full size: max abs err {err[0]}, max rel err {err[1]} "
+        f"(F={a[2].shape[1]}, mpt={a[2].shape[2]}, lights listed "
+        f"{int(a[3].sum())})")
+    results["B3"] = time_kernel("B3", a, kw, launches["B3"], err[0])
     torch.cuda.synchronize()
 
-    print(json.dumps({"kernels": results}))
+    print(json.dumps({"kernels": [results[k] for k in KERNELS]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -104,12 +104,15 @@ def build_app(n_cubes=160_000, width=1280, height=720, capacity=None,
     return app
 
 
+SPANS = ("system:", "mesh:", "lights:")   # profiler span prefixes
+
+
 def profile(step, state, frames):
     """torch.profiler over `frames` frames. Prints the device busy share
     of the window (kernel time / CUDA-event wall time), kernel time per
-    span (system:*, mesh:* — each kernel counts toward the innermost span
-    whose GPU-side range holds it, so the ctypes-launched CUDA kernels are
-    attributed too) and the top kernels."""
+    span (system:*, mesh:*, lights:* — each kernel counts toward the
+    innermost span whose GPU-side range holds it, so the ctypes-launched
+    CUDA kernels are attributed too) and the top kernels."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
@@ -124,8 +127,8 @@ def profile(step, state, frames):
         torch.cuda.synchronize()
     wall_ms = start.elapsed_time(end)
     gpu = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    spans = [e for e in gpu if e.name.startswith(("system:", "mesh:"))]
-    kernels = [e for e in gpu if not e.name.startswith(("system:", "mesh:"))]
+    spans = [e for e in gpu if e.name.startswith(SPANS)]
+    kernels = [e for e in gpu if not e.name.startswith(SPANS)]
     per_span, per_kernel = {}, {}
     for k in kernels:
         t0, t1 = k.time_range.start, k.time_range.end

@@ -10,6 +10,7 @@ from pathlib import Path
 
 import jax
 import numpy as np
+import pytest
 import torch
 
 import bevy_tpu as jb
@@ -64,7 +65,7 @@ def _rng_trs(n, seed):
 
 def test_spawn_batch_and_query_masks():
     hp = np.arange(10, dtype=np.float32) * 1.5
-    jw, tw = jb.World(capacity=16), tb.World(capacity=16)
+    jw, tw = jb.World(capacity=16), tb.World(capacity=16, device="cpu")
     jw.spawn_batch([PortHp(value=hp)], 10)
     tw.spawn_batch([THp(value=hp)], 10)
     jw.spawn_batch([PortHp(value=7.0), PortTag()], 3)
@@ -105,7 +106,8 @@ def _ordered_app(pkg):
     ordering must run `seed` (set A), then `double` (set B), then `inc`."""
     H = {"j": PortHp, "t": THp}[pkg]
     m = {"j": jb, "t": tb}[pkg]
-    app = m.App(capacity=8)
+    app = jb.App(capacity=8) if pkg == "j" else tb.App(capacity=8,
+                                                        device="cpu")
     app.world.spawn_batch([H(value=1.0)], 4)
 
     @m.system
@@ -143,7 +145,7 @@ def test_system_order_by_sets():
 
 def test_time_after_frames_at_fixed_dt():
     japp = jb.App(capacity=8).add_plugins(JTimePlugin())
-    tapp = tb.App(capacity=8).add_plugins(TTimePlugin())
+    tapp = tb.App(capacity=8, device="cpu").add_plugins(TTimePlugin())
     for dt in [1 / 60] * 5 + [0.3, 1 / 30]:   # 0.3 > max_delta: clamped
         japp.update(dt=dt)
         tapp.update(dt=dt)
@@ -160,9 +162,9 @@ def test_fixed_update_steps_match():
     """With a FixedUpdate system registered the fixed loop runs it once
     per whole timestep of accumulated time, at most 8 times a frame."""
     apps = {}
-    for pkg, m, TP, H in (("j", jb, JTimePlugin, PortHp),
-                          ("t", tb, TTimePlugin, THp)):
-        app = m.App(capacity=4).add_plugins(TP())
+    for pkg, m, TP, H, kw in (("j", jb, JTimePlugin, PortHp, {}),
+                              ("t", tb, TTimePlugin, THp, {"device": "cpu"})):
+        app = m.App(capacity=4, **kw).add_plugins(TP())
         app.world.spawn(H(value=0.0))
 
         @m.system
@@ -185,7 +187,7 @@ def test_fixed_update_steps_match():
 def test_flat_propagation():
     t, r, s = _rng_trs(20, 0)
     japp = jb.App(capacity=32).add_plugins(JTransformPlugin())
-    tapp = tb.App(capacity=32).add_plugins(TTransformPlugin())
+    tapp = tb.App(capacity=32, device="cpu").add_plugins(TTransformPlugin())
     japp.world.spawn_batch([JTransform(translation=t, rotation=r, scale=s),
                             JGlobalTransform()], 20)
     tapp.world.spawn_batch([TTransform(translation=t, rotation=r, scale=s),
@@ -209,10 +211,12 @@ def test_level_synchronous_propagation():
     levels = ((slice(0, 3), None, 0), (slice(3, 6), [0, 1, 2], 1),
               (slice(6, 9), [3, 4, 3], 2), (slice(9, 10), [6], 3))
     apps = {}
-    for pkg, m, TP, Tr, GT, CO in (
-            ("j", jb, JTransformPlugin, JTransform, JGlobalTransform, JChildOf),
-            ("t", tb, TTransformPlugin, TTransform, TGlobalTransform, TChildOf)):
-        app = m.App(capacity=16).add_plugins(TP())
+    for pkg, m, TP, Tr, GT, CO, kw in (
+            ("j", jb, JTransformPlugin, JTransform, JGlobalTransform, JChildOf,
+             {}),
+            ("t", tb, TTransformPlugin, TTransform, TGlobalTransform, TChildOf,
+             {"device": "cpu"})):
+        app = m.App(capacity=16, **kw).add_plugins(TP())
         for sl, parent, depth in levels:
             comps = [Tr(translation=t[sl], rotation=r[sl], scale=s[sl]), GT()]
             if parent is not None:
@@ -264,3 +268,19 @@ def test_state_from_numpy_carries_the_many_cubes_world():
     # the port's one extra counter: clusters routed to the B2 fallback
     assert missing == [("render_stats", "fallback_clusters")]
     assert torch.equal(state["ent"]["alive"], tstate["ent"]["alive"])
+
+
+def test_app_and_world_default_to_the_card():
+    """App() and World() take the CUDA card unless the caller asks for the
+    CPU; where there is no card they raise rather than fall back."""
+    tapp = tb.App(capacity=8, device="cpu").add_plugins(TTimePlugin())
+    tapp.update(dt=1 / 60)
+    assert tapp.device.type == "cpu" and tapp.frame == 1
+    if torch.cuda.is_available():
+        assert tb.App(capacity=8).device.type == "cuda"
+        assert tb.World(capacity=8).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            tb.App(capacity=8)
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            tb.World(capacity=8)

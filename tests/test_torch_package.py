@@ -19,10 +19,12 @@ import bevy_tpu_torch
 from bevy_tpu_torch.ops import _cuda
 from bevy_tpu_torch.ops import raster3d_splat as splat
 from bevy_tpu_torch.ops import raster3d_visbuf as vis
+from bevy_tpu_torch.ops import shade
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "bevy_tpu_torch").rglob("*.py")) + [
-    ROOT / "examples" / "torch_many_cubes.py", ROOT / "chip_smoke.py"]
+    ROOT / "examples" / "torch_many_cubes.py",
+    ROOT / "examples" / "torch_many_lights.py", ROOT / "chip_smoke.py"]
 
 
 def _imports(path):
@@ -119,3 +121,54 @@ def test_kernels_match_plain_on_card():
     with pytest.raises(ValueError):
         splat.fused_eval_composite(d0, w0, rows, owner.long(), meta, wvalid,
                                    win_h=16, ntri=1, nedge=3)
+
+
+def _shade_case(device, nf=24, nplanes=22, seed=0):
+    """A small deferred-shade input (4 bin tiles of 32 x 128, a sky tile,
+    up to 20 lights a tile) made on `device` from a seed."""
+    g = torch.Generator().manual_seed(seed)
+    H, W = 64, 256
+
+    def u(*shape, lo=0.0, hi=1.0):
+        return (torch.rand(shape, generator=g) * (hi - lo) + lo).to(device)
+
+    gbuf = u(nplanes, H, W)
+    n = torch.randn((3, H, W), generator=g)
+    gbuf[4:7] = (n / n.norm(dim=0)).to(device)
+    gbuf[11] = u(H, W, lo=0.4)
+    depth = u(H, W, lo=0.02, hi=0.2)
+    depth[:32, 128:] = 0.0
+    table = u(4, nf, 128, lo=-4.0, hi=4.0)
+    table[:, 3:7] = table[:, 3:7].abs() + 1.0
+    table[:, 11] = -2.0
+    table[:, 12] = 1.0
+    counts = torch.tensor([20, 7, 0, 13], dtype=torch.int32, device=device)
+    inv_vp = torch.tensor([[0.8, 0.0, 0.0, 0.0], [0.0, 0.45, 0.0, 0.0],
+                           [0.0, 0.0, 0.0, -1.0], [0.0, 0.0, 10.0, 0.1]])
+    params = torch.cat([inv_vp.reshape(16), torch.tensor(
+        [0.3, -0.8, -0.5, 1.0, 0.9, 0.8, 0.05, 0.05, 0.06, W, H,
+         0.1, 0.1, 0.13, 1.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0,
+         0.0])]).to(device)
+    return gbuf, depth, table, counts, params, u(H, W)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("flags", [
+    dict(spot=False, clearcoat=False),
+    dict(spot=True, rect=True, clearcoat=True, anisotropy=True,
+         reflectance=True, specular_tint=True)], ids=["point", "all"])
+def test_shade_kernel_matches_plain_on_card(flags):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (runs in chip_smoke.py's environment)")
+    gbuf, depth, table, counts, params, sh = _shade_case("cuda")
+    n0 = shade.deferred_shade.launches
+    for shadow in (None, sh):
+        got = shade.deferred_shade(gbuf, depth, table, counts, params, shadow,
+                                   **flags)
+        want = shade._deferred_shade_plain(gbuf, depth, table, counts, params,
+                                           shadow, **flags)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    assert shade.deferred_shade.launches == n0 + 2
+    with pytest.raises(ValueError):
+        shade.deferred_shade(gbuf, depth, table, counts.long(), params)
