@@ -27,5 +27,6 @@ from bevy_tpu_torch.app.main_schedule import (  # noqa: E402,F401
 )
 from bevy_tpu_torch.ecs import (  # noqa: E402,F401
     component, field, resource, World, system, Schedule, Query, Read, Res,
-    ResMut, With, Without, Entity,
+    ResMut, With, Without, Entity, Commands, message, MessageReader,
+    MessageWriter,
 )

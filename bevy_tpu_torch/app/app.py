@@ -23,6 +23,7 @@ from bevy_tpu_torch.app.main_schedule import (
 from bevy_tpu_torch.app.plugin import Plugin
 from bevy_tpu_torch.ecs._state import set_in
 from bevy_tpu_torch.ecs.component import ComponentInstance, get_spec
+from bevy_tpu_torch.ecs.message import swap_message_buffers
 from bevy_tpu_torch.ecs.schedule import Schedule
 from bevy_tpu_torch.ecs.world import World
 
@@ -97,6 +98,11 @@ class App:
             self.world.insert_resource(inst)
         return self
 
+    def add_message(self, msg, capacity: int = 1024):
+        """Register a buffered message type (ref: App::add_message)."""
+        self.world.add_message(msg, capacity)
+        return self
+
     def add_prepare_hook(self, fn):
         """Host callback run before a frame whenever world structure
         changed since its last run (ref position: PrepareMeshes)."""
@@ -140,8 +146,8 @@ class App:
                 return set_in(state, ("res", "frame_input"), store)
             return frame_begin
         if item[0] == "frame_end":
-            return lambda state, dt: set_in(state, ("frame",),
-                                            state["frame"] + 1)
+            return lambda state, dt: set_in(swap_message_buffers(state),
+                                            ("frame",), state["frame"] + 1)
         raise ValueError(item)
 
     # ------------------------------------------------------------------

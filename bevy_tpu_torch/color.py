@@ -1,5 +1,6 @@
 """Color conversions (port of bevy_tpu/color.py): the sRGB encode used at
-readback. All rendering math is linear RGBA float32."""
+readback and the decode of sRGB-authored colours and textures. All
+rendering math is linear RGBA float32."""
 
 from __future__ import annotations
 
@@ -20,3 +21,18 @@ def image_to_srgb_u8(img):
     a = torch.clamp(img[..., 3:4], 0.0, 1.0)
     out = torch.cat([rgb, a], dim=-1)
     return torch.round(out * 255.0).to(torch.uint8)
+
+
+def srgb_to_linear(c):
+    """Per-channel sRGB EOTF (ref: Srgba::gamma_function_inverse). Takes
+    a tensor, or numpy/sequence values (then returns a CPU tensor)."""
+    c = torch.as_tensor(c, dtype=torch.float32)
+    return torch.where(c <= 0.04045, c / 12.92,
+                       ((c + 0.055) / 1.055) ** 2.4)
+
+
+def srgba(r, g, b, a=1.0):
+    """sRGB-encoded colour -> linear RGBA (4,) f32 CPU tensor (ref:
+    Color::srgb)."""
+    rgb = srgb_to_linear(torch.tensor([r, g, b], dtype=torch.float32))
+    return torch.cat([rgb, torch.tensor([a], dtype=torch.float32)])

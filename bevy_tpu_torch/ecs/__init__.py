@@ -10,4 +10,8 @@ from bevy_tpu_torch.ecs.query import (  # noqa: F401
     Query, Read, Res, ResMut, With, Without,
 )
 from bevy_tpu_torch.ecs.system import system, System  # noqa: F401
+from bevy_tpu_torch.ecs.commands import Commands  # noqa: F401
+from bevy_tpu_torch.ecs.message import (  # noqa: F401
+    message, MessageReader, MessageWriter, swap_message_buffers,
+)
 from bevy_tpu_torch.ecs.schedule import Schedule  # noqa: F401

@@ -1,7 +1,7 @@
 """Systems (port of bevy_tpu/ecs/system.py; ref: bevy_ecs function systems).
 
 A system is a plain function whose default argument values declare its
-params (Query / Res / ResMut)::
+params (Query / Res / ResMut / Commands / MessageWriter / MessageReader)::
 
     @system
     def apply_velocity(q=Query(Transform, Read(Velocity)), time=Res(Time)):
@@ -21,9 +21,11 @@ import torch
 from torch.profiler import record_function
 
 from bevy_tpu_torch.ecs._state import set_in
+from bevy_tpu_torch.ecs.commands import Commands
+from bevy_tpu_torch.ecs.message import MessageReader, MessageWriter
 from bevy_tpu_torch.ecs.query import Query, Res
 
-PARAM_TYPES = (Query, Res)
+PARAM_TYPES = (Query, Res, Commands, MessageWriter, MessageReader)
 
 
 class System:
@@ -47,6 +49,9 @@ class System:
         for p in self.params.values():
             if isinstance(p, Query):
                 for spec in p.specs():
+                    world.register_component(spec)
+            elif isinstance(p, Commands):
+                for spec in p.spawn_comps:
                     world.register_component(spec)
         if self.id not in world.state["sys"]:
             world.state["sys"][self.id] = {

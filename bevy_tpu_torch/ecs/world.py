@@ -10,6 +10,10 @@ packages' worlds convert into each other key for key.
 Structural edits (register, spawn) happen on the host between frames and
 write the pools in place; numpy mirrors track liveness, and every edit
 bumps `structure_version` (what the App's prepare hooks key on).
+Device-tier Commands (ecs/commands.py) edit liveness inside a frame
+without touching the mirrors: they mark them stale, and the host calls
+that read them (`spawn_batch`, `query_rows`, `entity_count`) copy them
+back first, so a frame itself never reads the device.
 """
 
 from __future__ import annotations
@@ -59,12 +63,41 @@ class World:
         }
         self._host_alive = np.zeros(self.capacity, bool)
         self._host_has: Dict[str, np.ndarray] = {}
+        # stale host mirrors: set by device-tier Commands, with the
+        # components they spawned or inserted since the last copy-back
+        self._device_dirty = False
+        self._device_added: set = set()
 
     def component_rows(self, comp) -> int:
-        """Host-known row count of a component (trace-free fast paths,
-        e.g. flat transform propagation)."""
-        has = self._host_has.get(get_spec(comp).name)
+        """Host-known row count of a component (fast paths such as flat
+        transform propagation). Copies the mirrors back only when
+        device-tier Commands added this component since the last copy, so
+        a frame whose commands touch other components reads nothing back;
+        a count that device despawns made stale is only ever too high."""
+        name = get_spec(comp).name
+        if name in self._device_added:
+            self._sync()
+        has = self._host_has.get(name)
         return 0 if has is None else int(has.sum())
+
+    # ------------------------------------------------------------------
+    # liveness mirrors (ref: the JAX package's mark_device_dirty)
+
+    def mark_device_dirty(self, added=()):
+        """The device state's liveness changed behind the host mirrors;
+        `added`: names of components given to rows."""
+        self._device_dirty = True
+        self._device_added.update(added)
+
+    def _sync(self):
+        if not self._device_dirty:
+            return
+        self._host_alive = self.state["ent"]["alive"].cpu().numpy().copy()
+        for name in self.specs:
+            self._host_has[name] = \
+                self.state["comp"][name]["has"].cpu().numpy().copy()
+        self._device_dirty = False
+        self._device_added.clear()
 
     # ------------------------------------------------------------------
     # registration
@@ -88,6 +121,26 @@ class World:
                   for fname, fld in spec.fields.items()},
         }
         self._host_has[spec.name] = np.zeros(n, bool)
+        self.structure_version += 1
+        return spec
+
+    def add_message(self, msg, capacity: int = 1024) -> ComponentSpec:
+        """Register a double-buffered message queue (ref: Messages<M>
+        two-frame ring, message/messages.rs:95): per field a (2, capacity,
+        *shape) tensor, `count` (2,), per-slot write tick `t` (2,
+        capacity) and the current buffer `cur` (ecs/message.py)."""
+        spec = get_spec(msg)
+        if spec.name in self.state["msg"]:
+            return spec
+        dev = self.device
+        self.state["msg"][spec.name] = {
+            "f": {fname: torch.zeros((2, capacity) + fld.shape,
+                                     dtype=fld.dtype, device=dev)
+                  for fname, fld in spec.fields.items()},
+            "count": torch.zeros(2, dtype=torch.int32, device=dev),
+            "t": torch.zeros((2, capacity), dtype=torch.int32, device=dev),
+            "cur": torch.zeros((), dtype=torch.int32, device=dev),
+        }
         self.structure_version += 1
         return spec
 
@@ -115,6 +168,7 @@ class World:
     # host-tier structural ops
 
     def grow(self, min_capacity: int):
+        self._sync()
         new_cap = self.capacity
         while new_cap < min_capacity:
             new_cap *= 2
@@ -146,6 +200,7 @@ class World:
         """Bulk spawn `count` entities sharing a component set; field values
         may be scalars (broadcast) or (count, *shape) arrays. Returns row
         indices (ref: World::spawn_batch)."""
+        self._sync()
         free = np.flatnonzero(~self._host_alive)
         if len(free) < count:
             self.grow(self.capacity + (count - len(free)))
@@ -179,6 +234,7 @@ class World:
         return self.state["comp"][get_spec(comp).name]["f"][fname]
 
     def query_rows(self, *comps) -> np.ndarray:
+        self._sync()
         m = self._host_alive.copy()
         for comp in comps:
             m &= self._host_has[get_spec(comp).name]

@@ -25,7 +25,8 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_build"
-SOURCES = ("splat_raster.cu", "stream_raster.cu", "deferred_shade.cu")
+SOURCES = ("splat_raster.cu", "stream_raster.cu", "deferred_shade.cu",
+           "sprite_tiles.cu", "sprite_splat.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -38,6 +39,10 @@ _SIGNATURES = {
                          _P, _P, _P],
     "bt_deferred_shade": [_P, _I, _P, _P, _P, _I, _I, _P, _P, _I, _I, _I,
                           _I, _I, _I, _P, _P],
+    "bt_sprite_tiles": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                        _I, _I, _P, _P],
+    "bt_sprite_splat": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                        _I, _P, _P],
 }
 
 

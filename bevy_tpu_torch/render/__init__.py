@@ -1,6 +1,17 @@
-"""Render core (port of bevy_tpu.render): camera, meshes, the framebuffer
-plugin and the instanced 3D mesh pass (render/mesh3d.py)."""
+"""Render core (port of bevy_tpu.render): cameras, meshes, the framebuffer
+plugin, the instanced 3D mesh pass (render/mesh3d.py), deferred lighting
+(render/deferred.py) and the 2D sprite pass (render/sprite.py) over the
+texture atlas (render/texture.py)."""
 
+from bevy_tpu_torch.render.camera import (  # noqa: F401
+    Camera2d, OrthographicProjection,
+)
 from bevy_tpu_torch.render.plugin import (  # noqa: F401
     ClearColor, RenderPlugin, RenderTarget, frame_image,
+)
+from bevy_tpu_torch.render.sprite import (  # noqa: F401
+    Anchor, Sprite, SpritePlugin, sprite_from_handle,
+)
+from bevy_tpu_torch.render.texture import (  # noqa: F401
+    AtlasBuilder, TextureAtlas, checkerboard,
 )

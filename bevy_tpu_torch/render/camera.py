@@ -1,7 +1,10 @@
-"""3D camera (port of bevy_tpu/render/camera.py; ref: bevy_camera —
-Camera3d + PerspectiveProjection, reverse-z infinite far).
+"""Cameras (port of bevy_tpu/render/camera.py; ref: bevy_camera —
+Camera3d + PerspectiveProjection, reverse-z infinite far; Camera2d +
+OrthographicProjection, 1 world unit = 1 pixel at scale 1, origin
+centred, +y up).
 
-Screen convention: pixel (0,0) is top-left, y down.
+Screen convention: pixel (0,0) is top-left, y down; the 2D world→screen
+transform flips y exactly once.
 """
 
 from __future__ import annotations
@@ -16,6 +19,45 @@ def pick_camera(mask):
     """Index of the first alive row with the component, and whether one
     exists — both as device tensors (no host sync)."""
     return torch.argmax(mask.to(torch.uint8)), torch.any(mask)
+
+
+@component
+class Camera2d:
+    """2D orthographic camera (ref: Camera2d + OrthographicProjection with
+    ScalingMode::WindowSize). `scale` = world units per pixel; `order`
+    breaks ties between cameras (ref: Camera::order). The sprite pass
+    draws one camera over the full target; vp_min/vp_max other than the
+    full rect (2D split-screen) are not ported (ROADMAP A6b)."""
+    scale = field((), default=1.0)
+    order = field((), torch.int32, default=0)
+    layers = field((), torch.int32, default=1)  # ref: RenderLayers bitmask
+    vp_min = field((2,), default=(0.0, 0.0))
+    vp_max = field((2,), default=(1.0, 1.0))
+
+
+class OrthographicProjection:
+    """Host-side helper mirroring the reference's projection struct."""
+
+    def __init__(self, scale: float = 1.0):
+        self.scale = scale
+
+
+def world_to_screen_2d(xy, cam_xy, cam_cos, cam_sin, cam_scale, width,
+                       height):
+    """World points (N, 2) -> pixel coords (N, 2), y down: the inverse
+    camera rotation, the projection scale, recentred on the target (ref:
+    the view uniform of bevy_render/src/view/mod.rs, in closed 2D form)."""
+    d = xy - cam_xy
+    vx = cam_cos * d[..., 0] + cam_sin * d[..., 1]
+    vy = -cam_sin * d[..., 0] + cam_cos * d[..., 1]
+    return torch.stack([width * 0.5 + vx / cam_scale,
+                        height * 0.5 - vy / cam_scale], -1)
+
+
+def quat_z_angle(q):
+    """Rotation angle about +z of (..., 4) xyzw quaternions (the 2D paths
+    rotate about z only, as the reference's do)."""
+    return 2.0 * torch.atan2(q[..., 2], q[..., 3])
 
 
 @component

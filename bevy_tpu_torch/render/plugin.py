@@ -35,6 +35,7 @@ CLEAR_SET = "render:clear"
 QUEUE_SET = "render:queue"
 PASS_SET = "render:pass"        # 3D geometry passes (forward or G-buffer)
 SHADE_SET = "render:shade"      # deferred lighting resolve
+OVERLAY_SET = "render:overlay"  # transparent 2D composition (sprites)
 
 
 @system(name="clear_render_target")
@@ -65,6 +66,8 @@ class RenderPlugin(Plugin):
         sched.configure_set(QUEUE_SET, after=CLEAR_SET)
         sched.configure_set(PASS_SET, after=[CLEAR_SET, QUEUE_SET])
         sched.configure_set(SHADE_SET, after=[CLEAR_SET, PASS_SET])
+        sched.configure_set(OVERLAY_SET,
+                            after=[CLEAR_SET, PASS_SET, SHADE_SET])
         app.add_systems(Render, clear_render_target, in_set=CLEAR_SET)
 
 

@@ -25,7 +25,27 @@ source, all started together), then:
    mesh pass's own tile overflow are 0;
 8. holds B1 and B2 (bit for bit) against their plain versions on every call
    of one full-size many_lights frame, and times B3 against its plain
-   version at that frame's shapes.
+   version at that frame's shapes;
+9. holds the tile sprite raster (B4) against its plain version, bit for
+   bit, on the CPU test scenes moved to the card (f32 bilinear and
+   nearest, bf16, rotated solid, a max_visible overflow, an overflowing
+   tile);
+10. renders the breakout twin at the golden configuration (320x200, 25
+   frames) against tests/goldens/breakout_f25.png, holding B4 against
+   plain on every call;
+11. runs many_sprites at full size (100,000 sprites, 1280x720), times 20
+   frames with CUDA events, checks B4 was launched once a frame and that
+   pair_overflow and visible_overflow are 0 (tile_overflow, the true
+   count, is printed);
+12. holds the window-splat sprite raster (B5) against its plain version,
+   bit for bit, on every (rotated, alpha_only, f32/bf16) variant, and on
+   tall, equal-z and opaque-wall scenes;
+13. runs bevymark at full size (1280x720): 150 frames build the flock,
+   then 20 frames are timed; checks the bird count against the spawn
+   budget arithmetic, that B5 was launched once a frame and that
+   pair_overflow and visible_overflow are 0;
+14. times B4 (a many_sprites frame) and B5 (a bevymark frame) against
+   their plain versions at full size, each kernel bit-equal to plain there.
 
 Each kernel's bound (the least time the card could take for the same work:
 the larger of its bytes over 3.35 TB/s and its FP32 operations over 67
@@ -62,7 +82,15 @@ KERNELS = {
            "bevy_tpu/ops/raster3d_visbuf.py:382"),
     "B3": ("deferred_shade", "bevy_tpu_torch/csrc/deferred_shade.cu",
            "bevy_tpu/ops/shade_pallas.py:99"),
+    "B4": ("sprite_tiles", "bevy_tpu_torch/csrc/sprite_tiles.cu",
+           "bevy_tpu/ops/raster2d_pallas.py:50"),
+    "B5": ("sprite_splat", "bevy_tpu_torch/csrc/sprite_splat.cu",
+           "bevy_tpu/ops/raster2d_splat.py:64"),
 }
+BREAKOUT_GOLDEN = ROOT / "tests" / "goldens" / "breakout_f25.png"
+BREAKOUT_GOLDEN_KW = dict(width=320, height=200, camera_scale=3.2,
+                          ball_velocity=(120.0, 380.0))
+FLOCK_FRAMES = 150         # bevymark frames that build the flock
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 FP32_FLOPS = 67e12             # H100 SXM, FP32 outside the tensor cores
 SHADE_TOL = dict(rtol=1e-5, atol=1e-5)
@@ -121,12 +149,13 @@ def read_png_rgba8(path):
 
 class Recorder:
     """Wraps the kernel entry points where the render modules call them
-    (mesh3d: B1, B2; deferred: B3) to keep the arguments of every call
-    (for the kernel-vs-plain comparisons)."""
+    (mesh3d: B1, B2; deferred: B3; sprite: B4, B5) to keep the arguments
+    of every call (for the kernel-vs-plain comparisons)."""
 
     def __init__(self):
-        from bevy_tpu_torch.render import deferred, mesh3d
-        self.sites = {"B1": mesh3d, "B2": mesh3d, "B3": deferred}
+        from bevy_tpu_torch.render import deferred, mesh3d, sprite
+        self.sites = {"B1": mesh3d, "B2": mesh3d, "B3": deferred,
+                      "B4": sprite, "B5": sprite}
         self.calls = {kid: [] for kid in self.sites}
         self.orig = {kid: getattr(mod, KERNELS[kid][0])
                      for kid, mod in self.sites.items()}
@@ -145,17 +174,23 @@ class Recorder:
 
 
 def plain_fn(kid):
-    from bevy_tpu_torch.ops import raster3d_splat, raster3d_visbuf, shade
+    from bevy_tpu_torch.ops import (
+        raster2d, raster2d_splat, raster3d_splat, raster3d_visbuf, shade)
     return {"B1": raster3d_splat._fused_plain,
             "B2": raster3d_visbuf._raster_visbuf_plain,
-            "B3": shade._deferred_shade_plain}[kid]
+            "B3": shade._deferred_shade_plain,
+            "B4": raster2d._sprite_tiles_plain,
+            "B5": raster2d_splat._sprite_splat_plain}[kid]
 
 
 def kernel_fn(kid):
-    from bevy_tpu_torch.ops import raster3d_splat, raster3d_visbuf, shade
+    from bevy_tpu_torch.ops import (
+        raster2d, raster2d_splat, raster3d_splat, raster3d_visbuf, shade)
     return {"B1": raster3d_splat.fused_eval_composite,
             "B2": raster3d_visbuf.raster_visbuf,
-            "B3": shade.deferred_shade}[kid]
+            "B3": shade.deferred_shade,
+            "B4": raster2d.sprite_tiles,
+            "B5": raster2d_splat.sprite_splat}[kid]
 
 
 def reset_launches():
@@ -169,8 +204,19 @@ def read_launches():
 
 def compare(kid, a, kw):
     """Kernel vs plain on one recorded call. B1/B2: asserts bit equality
-    of depth and winner; B3: asserts rtol/atol SHADE_TOL. Returns the max
-    abs error (and, for B3, the max relative error)."""
+    of depth and winner; B3: asserts rtol/atol SHADE_TOL; B4/B5: asserts
+    bit equality of the framebuffer. Returns the max abs error (and, for
+    B3, the max relative error)."""
+    if kid in ("B4", "B5"):
+        ck = kernel_fn(kid)(*a, **kw)
+        cp = plain_fn(kid)(*a, **kw)
+        torch.cuda.synchronize()
+        err = float((ck - cp).abs().max())
+        nd = int((ck.view(torch.int32) != cp.view(torch.int32)).sum())
+        if nd:
+            raise AssertionError(f"{kid} kernel != plain: {nd} values "
+                                 f"differ (max abs err {err})")
+        return err
     if kid == "B3":
         ck = kernel_fn(kid)(*a, **kw)
         cp = plain_fn(kid)(*a, **kw)
@@ -306,7 +352,167 @@ def bound_b3(a, kw):
     return _bound(nbytes, ops) + (evals,)
 
 
-BOUNDS = {"B1": bound_b1, "B2": bound_b2, "B3": bound_b3}
+# B4 / B5 operation counts, FP32, from csrc/sprite_tiles.cu and
+# csrc/sprite_splat.cu (min, max, abs, floor, compare, select and a
+# conversion count 1; a negation that folds into its user counts 0):
+# - B4, per pixel: its centre (2) and the merge over the framebuffer (9);
+#   per (pixel, sprite) the walk reaches: the coverage test (12); per
+#   covered pair: the blend (16); per covered textured pair: the sample
+#   (108; bf16 rounding +28).
+# - B5, per pixel: its centre (2) and the merge (9); per (pixel, listed
+#   window) the walk reaches: the row test (2); per pair in the window's
+#   rows: the coverage (6; rotated 18); per covered pair: the blend (6
+#   alpha_only, 9 otherwise); per covered textured pair: the sample (83
+#   alpha_only, 110 otherwise; bf16 rounding +10 alpha_only, +28).
+B4_OPS = dict(pixel=11, cover=12, blend=16, sample=108, sample_bf16=28)
+B5_OPS = dict(pixel=11, row=2, cover=6, cover_rot=18, blend_alpha=6,
+              blend=9, sample_alpha=83, sample=110, bf16_alpha=10,
+              bf16=28)
+
+
+def work_b4(a, kw):
+    """(walked, covered, covered textured) (pixel, sprite) pairs of one B4
+    call: each in-frame pixel walks its tile's run front to back until its
+    alpha is exactly 1.0, as the kernel does (the plain version's loop
+    with counters)."""
+    from bevy_tpu_torch.ops import raster2d
+    fb, pk, pair, starts, counts, atlas = a
+    th, tw = kw.get("tile_h", 32), kw.get("tile_w", 128)
+    _, H, W = fb.shape
+    nty, ntx = (H + th - 1) // th, (W + tw - 1) // tw
+    dev = fb.device
+    ti = torch.arange(nty * ntx, device=dev)
+    xi = torch.arange(tw, device=dev)[None, None, :] + \
+        ((ti % ntx) * tw)[:, None, None]
+    yi = torch.arange(th, device=dev)[None, :, None] + \
+        ((ti // ntx) * th)[:, None, None]
+    px, py = xi.float() + 0.5, yi.float() + 0.5
+    in_frame = (xi < W) & (yi < H)
+    pa = torch.zeros(px.shape[0], th, tw, device=dev)
+    n = [0, 0, 0]
+    for s_ in range(int(counts.max())):
+        idx = torch.clamp(starts + counts - 1 - s_, 0, pair.shape[0] - 1)
+        row = pk[pair[idx.long()].long()]
+        d = [row[:, k][:, None, None] for k in range(17)]
+        live = (s_ < counts)[:, None, None] & (pa < 1.0) & in_frame
+        dx, dy = px - d[0], py - d[1]
+        inside = (torch.abs(d[4] * dx + d[5] * dy) <= d[2]) & \
+            (torch.abs(-d[5] * dx + d[4] * dy) <= d[3])
+        ta = raster2d.sample_tiles(atlas, d, px, py, kw.get("bilinear", True),
+                                   kw.get("bf16", False))[3]
+        al = torch.where(inside & live, ta * d[9], 0.0)
+        pa = pa + (1.0 - pa) * al
+        cov = live & inside
+        n[0] += int(live.sum())
+        n[1] += int(cov.sum())
+        n[2] += int((cov & (d[14] >= 0)).sum())
+    return n
+
+
+def bound_b4(a, kw):
+    """B4: the framebuffer read and written once (32 B a pixel), each
+    visible sprite row once (68 B), each listed pair index (4 B), the tile
+    runs (8 B a tile) and the atlas; operations B4_OPS over work_b4's
+    counts."""
+    fb, pk, pair, starts, counts, atlas = a
+    walked, covered, textured = work_b4(a, kw)
+    npx = fb.shape[1] * fb.shape[2]
+    nbytes = 32 * npx + 68 * pk.shape[0] + 4 * int(counts.sum()) + \
+        8 * counts.numel() + 4 * atlas.numel()
+    o = B4_OPS
+    ops = o["pixel"] * npx + o["cover"] * walked + o["blend"] * covered + \
+        (o["sample"] + o["sample_bf16"] * kw.get("bf16", False)) * textured
+    return _bound(nbytes, ops) + (f"{walked} (pixel, sprite) pairs walked, "
+                                  f"{covered} covered",)
+
+
+def work_b5(a, kw):
+    """(walked, in window rows, covered, covered textured) (pixel, window)
+    pairs of one B5 call: each in-frame pixel walks its 8-row block's
+    windows front to back until its alpha is exactly 1.0, as the kernel
+    does."""
+    from bevy_tpu_torch.ops import raster2d_splat
+    fb, pk, win, blk_win, blk_start, blk_count, atlas = a
+    win_h = kw.get("win_h", 40)
+    rotated = kw.get("rotated", True)
+    _, H, W = fb.shape
+    ncols = (W + 127) // 128
+    nb = blk_start.shape[0]
+    nrb = nb // ncols
+    dev = fb.device
+    bi = torch.arange(nb, device=dev)
+    xi = torch.arange(128, device=dev)[None, None, :] + \
+        ((bi // nrb) * 128)[:, None, None]
+    yi = torch.arange(8, device=dev)[None, :, None] + \
+        ((bi % nrb) * 8)[:, None, None]
+    px, py = xi.float() + 0.5, yi.float() + 0.5
+    in_frame = (xi < W) & (yi < H)
+    pa = torch.zeros(nb, 8, 128, device=dev)
+    n = [0, 0, 0, 0]
+    for s_ in range(int(blk_count.max())):
+        w = blk_win[torch.clamp(blk_start + s_, 0,
+                                blk_win.shape[0] - 1).long()].long()
+        wrec = win[w]
+        row = pk[torch.clamp(wrec[:, 0], min=0).long()]
+        d = [row[:, k][:, None, None] for k in range(17)]
+        wy0 = wrec[:, 2][:, None, None]
+        live = (s_ < blk_count)[:, None, None] & (pa < 1.0) & in_frame
+        rows = live & (yi >= wy0) & (yi < wy0 + win_h)
+        if rotated:
+            cs, sn = d[4], d[5]
+            lx = cs * px - (cs * d[0] + sn * d[1]) + sn * py
+            ly = -sn * px + (sn * d[0] - cs * d[1]) + cs * py
+        else:
+            lx, ly = px - d[0], py - d[1]
+        inside = (torch.abs(lx) <= d[2]) & (torch.abs(ly) <= d[3])
+        cov = rows & inside
+        # alpha reaches 1 only through the texel alpha times the tint;
+        # sample it as the kernel does (lx/ly on the window's edges when
+        # rotated)
+        if rotated:
+            px0 = (wrec[:, 1] * 128).float()[:, None, None] + 0.5
+            lxs = cs * px - (cs * d[0] + sn * d[1]) + sn * (wy0.float() + 0.5)
+            lys = -sn * px0 + (sn * d[0] - cs * d[1]) + cs * py
+        else:
+            lxs, lys = lx, ly
+        ta = raster2d_splat.sample_splat(
+            atlas, d, lxs, lys, kw.get("bilinear", True),
+            kw.get("bf16", False), kw.get("alpha_only", False))[3]
+        pa = pa + (1.0 - pa) * torch.where(cov, ta * d[9], 0.0)
+        n[0] += int(live.sum())
+        n[1] += int(rows.sum())
+        n[2] += int(cov.sum())
+        n[3] += int((cov & (d[14] >= 0)).sum())
+    return n
+
+
+def bound_b5(a, kw):
+    """B5: the framebuffer read and written once (32 B a pixel), each
+    visible sprite row once (68 B), each window record (12 B), each block
+    list entry (4 B), the block runs (8 B a block) and the atlas planes it
+    samples; operations B5_OPS over work_b5's counts."""
+    fb, pk, win, blk_win, blk_start, blk_count, atlas = a
+    alpha = kw.get("alpha_only", False)
+    bf16 = kw.get("bf16", False)
+    walked, rows, covered, textured = work_b5(a, kw)
+    npx = fb.shape[1] * fb.shape[2]
+    nwin = int((win[:, 0] >= 0).sum())
+    nbytes = 32 * npx + 68 * pk.shape[0] + 12 * nwin + \
+        4 * int(blk_count.sum()) + 8 * blk_count.numel() + \
+        4 * atlas[0].numel() * (1 if alpha else 4)
+    o = B5_OPS
+    sample = (o["sample_alpha"] + o["bf16_alpha"] * bf16) if alpha else \
+        (o["sample"] + o["bf16"] * bf16)
+    ops = o["pixel"] * npx + o["row"] * walked + \
+        (o["cover_rot"] if kw.get("rotated", True) else o["cover"]) * rows + \
+        (o["blend_alpha"] if alpha else o["blend"]) * covered + \
+        sample * textured
+    return _bound(nbytes, ops) + (f"{walked} (pixel, window) pairs walked, "
+                                  f"{covered} covered",)
+
+
+BOUNDS = {"B1": bound_b1, "B2": bound_b2, "B3": bound_b3, "B4": bound_b4,
+          "B5": bound_b5}
 
 
 def near_plane_app(device):
@@ -404,7 +610,9 @@ def time_kernel(kid, a, kw, launches, err):
     p_ms = cuda_ms(lambda: plain_fn(kid)(*a, **kw), 3)
     b = BOUNDS[kid](a, kw)
     b_ms, by = b[0], b[1]
-    extra = f", {b[2]} (pixel, light) evaluations" if len(b) > 2 else ""
+    extra = "" if len(b) < 3 else (f", {b[2]}" if isinstance(b[2], str)
+                                    else f", {b[2]} (pixel, light) "
+                                         f"evaluations")
     log(f"{kid} {KERNELS[kid][0]} at full size: kernel {k_ms:.4f} ms, "
         f"plain {p_ms:.4f} ms, bound {b_ms:.4f} ms ({by}{extra}), "
         f"{b_ms / k_ms:.1%} of the bound")
@@ -447,6 +655,215 @@ def variants_app(device):
     return app
 
 
+def sprite_scene(seed, device, n=60, H=80, W=200, rot=False, big=False,
+                 ties=False, atlas_hw=16):
+    """The sprite scenes of tests/test_torch_sprite.py, on `device`:
+    packed (n, 17) sprites (some off-screen, 30% exactly opaque, 30% with
+    flipped uv, 70% textured unless rotated, z in 6 levels or all equal,
+    10% inactive), a framebuffer and a smooth (4, atlas_hw, atlas_hw)
+    atlas."""
+    rng = np.random.RandomState(seed)
+    p = np.zeros((n, 17), np.float32)
+    p[:, 0] = rng.uniform(-10, W + 10, n)
+    p[:, 1] = rng.uniform(-10, H + 10, n)
+    p[:, 2:4] = rng.uniform(2, 40 if big else 14, (n, 2))
+    ang = rng.uniform(-3, 3, n) if rot else np.zeros(n)
+    p[:, 4], p[:, 5] = np.cos(ang), np.sin(ang)
+    p[:, 6:9] = rng.uniform(0.1, 1, (n, 3))
+    p[:, 9] = np.where(rng.uniform(size=n) < 0.3, 1.0,
+                       rng.uniform(0.3, 1, n))
+    p[:, 12:14] = 1.0
+    flip = rng.uniform(size=n) < 0.3
+    p[flip, 10], p[flip, 12] = 1.0, 0.0
+    p[:, 14] = np.where((rng.uniform(size=n) < 0.7) & (not rot), 0.0, -1.0)
+    p[:, 15] = 0.0 if ties else rng.randint(0, 6, n)
+    p[:, 16] = (rng.uniform(size=n) < 0.9).astype(np.float32)
+    fb = rng.uniform(0, 1, (4, H, W)).astype(np.float32)
+    k = np.arange(atlas_hw, dtype=np.float32)
+    yy, xx = np.meshgrid(k, k, indexing="ij")
+    c = (atlas_hw - 1) / 2
+    atlas = np.stack([xx / (atlas_hw - 1), yy / (atlas_hw - 1),
+                      (xx + yy) % 2,
+                      np.clip(np.hypot(xx - c, yy - c) / (c + 0.5), 0, 1)])
+    return [torch.tensor(x, dtype=torch.float32, device=device)
+            for x in (fb, p, atlas)]
+
+
+def b4_scenes(device):
+    """B4 against plain, bit for bit, on the CPU test scenes."""
+    from bevy_tpu_torch.ops import raster2d
+    cases = [("f32 bilinear", dict(seed=0), {}, {}),
+             ("f32 nearest", dict(seed=0), {}, dict(bilinear=False)),
+             ("bf16", dict(seed=0), {}, dict(bf16=True)),
+             ("rotated solid", dict(seed=1, rot=True), {}, {}),
+             ("max_visible 40 of 120", dict(seed=2, n=120),
+              dict(max_visible=40), {}),
+             ("overflowing tile", dict(seed=3, n=300, big=True),
+              dict(max_per_tile=100), {})]
+    for name, sc, bin_kw, kw in cases:
+        fb, p, atlas = sprite_scene(device=device, **sc)
+        pk, pair, starts, counts, st = raster2d.bin_sprites(
+            p, fb.shape[1], fb.shape[2], **bin_kw)
+        err = compare("B4", (fb, pk, pair, starts, counts, atlas), kw)
+        log(f"B4 vs plain, {name}: bit-equal (max abs err {err}; "
+            f"{int(counts.sum())} listed, tile_overflow "
+            f"{int(st['tile_overflow'])}, visible_overflow "
+            f"{int(st['visible_overflow'])})")
+
+
+def b5_scenes(device):
+    """B5 against plain, bit for bit: every variant, and tall, equal-z
+    and opaque-wall scenes on bevymark's variant."""
+    from bevy_tpu_torch.ops import raster2d_splat
+
+    def run(name, fb, p, atlas, **kw):
+        pk, win, bw, bs, bc, st = raster2d_splat.build_sprite_windows(
+            p, fb.shape[1], fb.shape[2], windows_per_sprite=8)
+        if int(st["pair_overflow"]):
+            raise AssertionError(f"B5 scene {name} overflowed its windows")
+        err = compare("B5", (fb, pk, win, bw, bs, bc, atlas), kw)
+        log(f"B5 vs plain, {name}: bit-equal (max abs err {err}; "
+            f"{int((win[:, 0] >= 0).sum())} windows)")
+
+    for rot in (False, True):
+        for alpha in (False, True):
+            for bf16 in (False, True):
+                fb, p, atlas = sprite_scene(4, device, n=24, H=72, W=160,
+                                            atlas_hw=8, rot=rot)
+                if alpha:
+                    atlas[:3] = 1.0
+                run(f"rotated={rot} alpha_only={alpha} bf16={bf16}", fb, p,
+                    atlas, rotated=rot, alpha_only=alpha, bf16=bf16)
+    bev = dict(rotated=False, alpha_only=True, bf16=True)
+    fb, p, atlas = sprite_scene(5, device, n=24, H=72, W=160, atlas_hw=8,
+                                big=True)
+    atlas[:3] = 1.0
+    p[:, 3] *= 2.0
+    run("tall (aligned bands)", fb, p, atlas, **bev)
+    fb, p, atlas = sprite_scene(6, device, n=24, H=72, W=160, atlas_hw=8,
+                                ties=True)
+    atlas[:3] = 1.0
+    p[:, 0:2] = 60 + torch.tensor(np.random.RandomState(6).uniform(
+        -10, 10, (24, 2)), dtype=torch.float32, device=device)
+    p[:, 16] = 1.0
+    run("equal z", fb, p, atlas, **bev)
+    fb, p, atlas = sprite_scene(7, device, n=24, H=72, W=160, atlas_hw=8)
+    atlas[:3] = 1.0
+    p[:, 0], p[:, 1], p[:, 2:4] = 80.0, 36.0, 30.0
+    p[:, 15] = torch.linspace(1, 0, 24, device=device)
+    p[:, 16] = 1.0
+    p[23, 9], p[23, 14] = 1.0, -1.0
+    run("opaque wall", fb, p, atlas, **bev)
+
+
+def frame_drawn(state):
+    """Share of pixels whose colour differs from the clear colour."""
+    color = state["res"]["render_target"]["color"]
+    clear = state["res"]["clear_color"]["color"][:, None, None]
+    if not torch.isfinite(color).all():
+        raise AssertionError("sprite frame is not finite")
+    return float((color != clear).any(0).float().mean())
+
+
+def sprite_phases(dev, n, smi, results):
+    """Phases 9-14: B4 and B5 against plain on the test scenes, the
+    breakout golden, many_sprites 100k and bevymark at full size, and B4 /
+    B5 timed beside their bounds (entries of `results`)."""
+    import torch_bevymark
+    import torch_breakout
+    import torch_many_sprites
+    from bevy_tpu_torch.render import frame_image
+
+    # -- B4: CPU test scenes on the card ---------------------------------
+    b4_scenes(dev)
+
+    # -- breakout golden: B4 vs plain on every call + image --------------
+    bapp = torch_breakout.build_app(device=dev, **BREAKOUT_GOLDEN_KW)
+    with Recorder() as rec_b:
+        bapp.run(max_frames=25, dt=1 / 60)
+    torch.cuda.synchronize()
+    errs = [compare("B4", a, kw) for a, kw in rec_b.calls["B4"]]
+    if len(errs) != 25:
+        raise AssertionError(f"breakout called B4 {len(errs)} times in 25 "
+                             f"frames")
+    log(f"B4 vs plain, breakout golden: {len(errs)} calls bit-equal (max "
+        f"abs err {max(errs)})")
+    check_golden(frame_image(bapp), BREAKOUT_GOLDEN)
+    check_stats(bapp.world.state, ("pair_overflow", "tile_overflow",
+                                   "visible_overflow"))
+    log(f"breakout score after 25 frames: "
+        f"{int(bapp.world.state['res']['score']['value'])}")
+    del bapp, rec_b
+
+    # -- many_sprites at full size: 100k sprites, 1280x720 ----------------
+    app = torch_many_sprites.build_app(device=dev)
+    ms, launches, stats, _ = timed_frames(app, n)
+    drawn = frame_drawn(app.world.state)
+    log(f"many_sprites 100000 @1280x720: {ms:.3f} ms/frame over {n} frames "
+        f"(CUDA events; {smi})")
+    log(f"launches in those {n} frames: B4 {launches['B4']}; pair_overflow "
+        f"{stats['pair_overflow']}, visible_overflow "
+        f"{stats['visible_overflow']}, tile_overflow (true count) "
+        f"{stats['tile_overflow']}; drawn pixels {drawn:.3f}")
+    if launches["B4"] != n:
+        raise AssertionError(f"B4 launches on the many_sprites path: "
+                             f"{launches}")
+    check_stats(app.world.state, ("pair_overflow", "visible_overflow"))
+    if drawn < 0.05:
+        raise AssertionError("full-size many_sprites frame drew too little")
+    with Recorder() as rec_full:
+        app.update(dt=1 / 60)
+    torch.cuda.synchronize()
+    a, kw = rec_full.calls["B4"][-1]
+    err = compare("B4", a, kw)
+    log(f"B4 at full size: bit-equal to plain (max abs err {err}; visible "
+        f"budget {a[1].shape[0]}, listed {int(a[4].sum())}, most in a tile "
+        f"{int(a[4].max())})")
+    results["B4"] = time_kernel("B4", a, kw, launches["B4"], err)
+    del app, rec_full
+    torch.cuda.empty_cache()
+
+    # -- B5: variant scenes on the card ------------------------------------
+    b5_scenes(dev)
+
+    # -- bevymark at full size: 150 frames of flock, 20 timed ------------
+    app = torch_bevymark.build_app(device=dev)
+    step = app.frame_fn()
+    state = app.world.state
+    for _ in range(FLOCK_FRAMES):
+        state = step(state)
+    app.world.state = state
+    ms, launches, stats, _ = timed_frames(app, n)
+    birds = app.world.entity_count(torch_bevymark.Bird)
+    per_frame = int(min(np.float32(torch_bevymark.SPAWN_PER_SEC) *
+                        np.float32(1 / 60), 256))
+    want = per_frame * (FLOCK_FRAMES + 3 + n)
+    drawn = frame_drawn(app.world.state)
+    log(f"bevymark {birds} birds @1280x720: {ms:.3f} ms/frame over {n} "
+        f"frames after {FLOCK_FRAMES + 3} (CUDA events; {smi})")
+    log(f"launches in those {n} frames: B5 {launches['B5']}; pair_overflow "
+        f"{stats['pair_overflow']}, visible_overflow "
+        f"{stats['visible_overflow']}; drawn pixels {drawn:.3f}")
+    if birds != want:
+        raise AssertionError(f"{birds} birds, the spawn budget gives {want} "
+                             f"({per_frame} a frame)")
+    if launches["B5"] != n:
+        raise AssertionError(f"B5 launches on the bevymark path: {launches}")
+    check_stats(app.world.state, ("pair_overflow", "visible_overflow"))
+    if drawn < 0.05:
+        raise AssertionError("full-size bevymark frame drew too little")
+    with Recorder() as rec_full:
+        app.update(dt=1 / 60)
+    torch.cuda.synchronize()
+    a, kw = rec_full.calls["B5"][-1]
+    err = compare("B5", a, kw)
+    log(f"B5 at full size: bit-equal to plain (max abs err {err}; windows "
+        f"{int((a[2][:, 0] >= 0).sum())}, most in an 8-row block "
+        f"{int(a[5].max())})")
+    results["B5"] = time_kernel("B5", a, kw, launches["B5"], err)
+    torch.cuda.synchronize()
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py: torch.cuda.is_available() is false "
@@ -481,7 +898,8 @@ def main():
             entry = ln.split("'")[1]
         elif "registers" in ln and entry is not None:
             kind = next((k for k in ("splat_windows", "decode_keys",
-                                     "init_keys", "stream_tiles", "shade")
+                                     "init_keys", "stream_tiles",
+                                     "sprite_tiles", "sprite_splat", "shade")
                          if k in entry), entry)
             regs.setdefault(kind, []).append(
                 int(ln.split("Used ")[1].split()[0]))
@@ -594,7 +1012,8 @@ def main():
         f"{stats['light_tile_overflow']} ({stats['light_tile_overflow'] / n}"
         f"/frame); fallback clusters to B2 {stats['fallback_clusters'] / n}"
         f"/frame; covered pixels {covered:.3f}")
-    if min(launches.values()) == 0 or launches["B3"] != n:
+    if min(launches[k] for k in ("B1", "B2", "B3")) == 0 or \
+            launches["B3"] != n:
         raise AssertionError(f"launches on the many_lights path: {launches}")
     if stats["light_pair_overflow"] != 0:
         raise AssertionError("light pairs overflowed their cap at full size")
@@ -619,6 +1038,11 @@ def main():
         f"{int(a[3].sum())})")
     results["B3"] = time_kernel("B3", a, kw, launches["B3"], err[0])
     torch.cuda.synchronize()
+
+    del app, rec_full
+    torch.cuda.empty_cache()
+
+    sprite_phases(dev, n, smi, results)
 
     print(json.dumps({"kernels": [results[k] for k in KERNELS]}))
     print(smi)

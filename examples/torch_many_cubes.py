@@ -104,13 +104,13 @@ def build_app(n_cubes=160_000, width=1280, height=720, capacity=None,
     return app
 
 
-SPANS = ("system:", "mesh:", "lights:")   # profiler span prefixes
+SPANS = ("system:", "mesh:", "lights:", "sprite:")   # profiler spans
 
 
 def profile(step, state, frames):
     """torch.profiler over `frames` frames. Prints the device busy share
     of the window (kernel time / CUDA-event wall time), kernel time per
-    span (system:*, mesh:*, lights:* — each kernel counts toward the
+    span (system:*, mesh:*, lights:*, sprite:* — each kernel counts toward the
     innermost span whose GPU-side range holds it, so the ctypes-launched
     CUDA kernels are attributed too) and the top kernels."""
     from torch.autograd import DeviceType

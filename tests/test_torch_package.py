@@ -9,6 +9,7 @@ which the card's machine lacks)."""
 import ast
 import importlib
 import pkgutil
+import sys
 from pathlib import Path
 
 import numpy as np
@@ -17,14 +18,16 @@ import torch
 
 import bevy_tpu_torch
 from bevy_tpu_torch.ops import _cuda
+from bevy_tpu_torch.ops import raster2d, raster2d_splat
 from bevy_tpu_torch.ops import raster3d_splat as splat
 from bevy_tpu_torch.ops import raster3d_visbuf as vis
 from bevy_tpu_torch.ops import shade
 
 ROOT = Path(__file__).resolve().parent.parent
-PORT_FILES = sorted((ROOT / "bevy_tpu_torch").rglob("*.py")) + [
-    ROOT / "examples" / "torch_many_cubes.py",
-    ROOT / "examples" / "torch_many_lights.py", ROOT / "chip_smoke.py"]
+PORT_FILES = sorted((ROOT / "bevy_tpu_torch").rglob("*.py")) + sorted(
+    (ROOT / "examples").glob("torch_*.py")) + [ROOT / "chip_smoke.py"]
+TWINS = ("torch_many_cubes", "torch_many_lights", "torch_many_sprites",
+         "torch_bevymark", "torch_breakout")
 
 
 def _imports(path):
@@ -45,10 +48,21 @@ def test_port_never_imports_jax(path):
     assert not bad, f"{path.name} imports {bad}"
 
 
+def test_every_example_twin_is_guarded():
+    names = {p.stem for p in PORT_FILES}
+    assert set(TWINS) <= names
+
+
 def test_import_builds_nothing():
     for mod in pkgutil.walk_packages(bevy_tpu_torch.__path__,
                                      "bevy_tpu_torch."):
         importlib.import_module(mod.name)
+    sys.path.insert(0, str(ROOT / "examples"))
+    try:
+        for name in TWINS:
+            importlib.import_module(name)
+    finally:
+        sys.path.remove(str(ROOT / "examples"))
     assert _cuda._Loaded.lib is None
     assert not torch.backends.cuda.matmul.allow_tf32
     assert not torch.backends.cudnn.allow_tf32
@@ -172,3 +186,68 @@ def test_shade_kernel_matches_plain_on_card(flags):
     assert shade.deferred_shade.launches == n0 + 2
     with pytest.raises(ValueError):
         shade.deferred_shade(gbuf, depth, table, counts.long(), params)
+
+
+def _sprite_case(device="cpu"):
+    """Six sprites over a 40 x 200 frame (two bin tiles, two splat strips):
+    textured and solid, one rotated solid, equal z at the back."""
+    rng = np.random.RandomState(1)
+    n = 6
+    center = torch.tensor(rng.uniform(0, 200, (n, 2)) * [1, 0.2],
+                          dtype=torch.float32)
+    packed = raster2d.pack_sprite_instances(
+        center=center, half=torch.full((n, 2), 12.0),
+        rot=torch.tensor([0, 0, 0.7, 0, 0, 0], dtype=torch.float32),
+        color=torch.tensor(rng.uniform(0.2, 1, (n, 4)), dtype=torch.float32),
+        uv_min=torch.zeros(n, 2), uv_max=torch.ones(n, 2),
+        tex=torch.tensor([0, -1, -1, 0, 0, -1]),
+        z=torch.tensor([0, 0, 1, 2, 3, 4], dtype=torch.float32),
+        active=torch.ones(n, dtype=torch.bool))
+    fb = torch.tensor(rng.uniform(0, 1, (4, 40, 200)), dtype=torch.float32)
+    atlas = torch.tensor(rng.uniform(0, 1, (4, 8, 8)), dtype=torch.float32)
+    return fb.to(device), packed.to(device), atlas.to(device)
+
+
+def _sprite_kernels(fb, packed, atlas, bf16):
+    """B4 and B5 on one case, through their preparation."""
+    _, H, W = fb.shape
+    pk, pair, starts, counts, _ = raster2d.bin_sprites(packed, H, W)
+    b4 = raster2d.sprite_tiles(fb, pk, pair, starts, counts, atlas,
+                               bf16=bf16)
+    pk5, win, bw, bs, bc, _ = raster2d_splat.build_sprite_windows(
+        packed, H, W)
+    b5 = raster2d_splat.sprite_splat(fb, pk5, win, bw, bs, bc, atlas,
+                                     bf16=bf16)
+    return (b4, (pk, pair, starts, counts)), (b5, (pk5, win, bw, bs, bc))
+
+
+def test_sprite_wrappers_take_plain_version_on_cpu():
+    raster2d.sprite_tiles.launches = 0
+    raster2d_splat.sprite_splat.launches = 0
+    fb, packed, atlas = _sprite_case()
+    (b4, _), (b5, _) = _sprite_kernels(fb, packed, atlas, bf16=False)
+    # both rasters draw the same sprites in the same order
+    assert torch.allclose(b4, b5, atol=1e-5)
+    assert not torch.equal(b4, fb)
+    assert raster2d.sprite_tiles.launches == 0
+    assert raster2d_splat.sprite_splat.launches == 0
+    assert _cuda._Loaded.lib is None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+def test_sprite_kernels_match_plain_on_card(bf16):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (runs in chip_smoke.py's environment)")
+    fb, packed, atlas = _sprite_case("cuda")
+    n4 = raster2d.sprite_tiles.launches
+    n5 = raster2d_splat.sprite_splat.launches
+    (b4, a4), (b5, a5) = _sprite_kernels(fb, packed, atlas, bf16)
+    p4 = raster2d._sprite_tiles_plain(fb, *a4, atlas, bf16=bf16)
+    p5 = raster2d_splat._sprite_splat_plain(fb, *a5, atlas, bf16=bf16)
+    torch.cuda.synchronize()
+    assert torch.equal(b4, p4) and torch.equal(b5, p5)
+    assert raster2d.sprite_tiles.launches == n4 + 1
+    assert raster2d_splat.sprite_splat.launches == n5 + 1
+    with pytest.raises(ValueError):
+        raster2d.sprite_tiles(fb, a4[0], a4[1].long(), a4[2], a4[3], atlas)
