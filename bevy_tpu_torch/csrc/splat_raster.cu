@@ -24,33 +24,12 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "key_merge.cuh"
+
 namespace {
 
 constexpr int WIN_W = 128;
 constexpr int THREADS = 256;
-constexpr unsigned int LOW_INIT = 0xFFFFFFFFu;
-
-__device__ __forceinline__ long long order_key(float f) {
-  int b = __float_as_int(f);
-  return (long long)(b >= 0 ? b : (b ^ 0x7FFFFFFF));
-}
-
-__device__ __forceinline__ float key_float(long long k) {
-  // arithmetic floor of k / 2^32: the high 32 bits as a signed int
-  int b = (int)(k >> 32);
-  return __int_as_float(b >= 0 ? b : (b ^ 0x7FFFFFFF));
-}
-
-__device__ __forceinline__ long long make_key(float z, unsigned int low) {
-  unsigned long long hi = (unsigned long long)order_key(z) << 32;
-  return (long long)(hi | (unsigned long long)low);
-}
-
-__global__ void init_keys(const float* __restrict__ depth,
-                          long long* __restrict__ key, int n) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < n) key[i] = make_key(depth[i], LOW_INIT);
-}
 
 template <int NEDGE>
 __global__ void __launch_bounds__(THREADS)

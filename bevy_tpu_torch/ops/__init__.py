@@ -1,3 +1,3 @@
-"""Raster ops (port of bevy_tpu.ops): plain PyTorch around the two
-hand-written CUDA kernels (B1 `raster3d_splat.fused_eval_composite`, B2
-`raster3d_visbuf.raster_visbuf`)."""
+"""Raster and shade ops (port of bevy_tpu.ops): plain PyTorch around the
+hand-written CUDA kernels of `csrc/` (B1-B6), each behind a wrapper that
+names its kernel and keeps a plain PyTorch version beside it."""

@@ -7,7 +7,10 @@ loaded with ctypes. The build runs at the first CUDA launch
 a fresh checkout builds everything on its first frame and later processes
 reuse the library. Each C entry point takes device pointers and the CUDA
 stream as integers, launches on that stream without synchronising, and
-returns `cudaGetLastError()`; `check()` raises on a non-zero code.
+returns `cudaGetLastError()`; `check()` raises on a non-zero code. A
+wrapper takes its call's one device from `call_device()` and launches
+under `torch.cuda.device()` of it, so a kernel runs on the card that holds
+its tensors, not on whichever card is current.
 """
 
 from __future__ import annotations
@@ -26,7 +29,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_build"
 SOURCES = ("splat_raster.cu", "stream_raster.cu", "deferred_shade.cu",
-           "sprite_tiles.cu", "sprite_splat.cu")
+           "sprite_tiles.cu", "sprite_splat.cu", "window_composite.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -43,6 +46,8 @@ _SIGNATURES = {
                         _I, _I, _P, _P],
     "bt_sprite_splat": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                         _I, _P, _P],
+    "bt_window_composite": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P,
+                            _P, _P, _P],
 }
 
 
@@ -63,8 +68,9 @@ def _nvcc() -> str:
 
 def build_dir() -> Path:
     h = hashlib.sha256()
-    for name in SOURCES:
-        h.update((CSRC / name).read_bytes())
+    for path in [CSRC / name for name in SOURCES] + sorted(
+            CSRC.glob("*.cuh")):
+        h.update(path.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_ROOT / h.hexdigest()[:16]
 
@@ -119,6 +125,18 @@ def check(err: int, name: str):
     if err != 0:
         msg = library().bt_error_string(err).decode()
         raise RuntimeError(f"{name}: CUDA error {err} ({msg})")
+
+
+def call_device(*tensors) -> torch.device:
+    """The one device of a kernel call's tensors (None entries skipped).
+    Raises when they sit on different devices: a launch runs on one card,
+    and a pointer into another card's memory would fault there or read
+    the wrong buffer."""
+    devs = {t.device for t in tensors if t is not None}
+    if len(devs) != 1:
+        raise ValueError(f"a kernel call's tensors sit on different devices: "
+                         f"{sorted(map(str, devs))}")
+    return devs.pop()
 
 
 def stream_ptr(t: torch.Tensor) -> int:

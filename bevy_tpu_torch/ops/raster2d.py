@@ -281,7 +281,8 @@ def sprite_tiles(fb, pk, pair_sprite, starts, counts, atlas, *, tile_h=32,
     `csrc/sprite_tiles.cu` (one thread per pixel, 16x16 CTAs inside the
     tile_h x tile_w bin tiles)."""
     kw = dict(tile_h=tile_h, tile_w=tile_w, bilinear=bilinear, bf16=bf16)
-    if fb.device.type == "cpu":
+    dev = _cuda.call_device(fb, pk, pair_sprite, starts, counts, atlas)
+    if dev.type == "cpu":
         return _sprite_tiles_plain(fb, pk, pair_sprite, starts, counts,
                                    atlas, **kw)
     _, H, W = fb.shape
@@ -298,11 +299,13 @@ def sprite_tiles(fb, pk, pair_sprite, starts, counts, atlas, *, tile_h=32,
     if atlas.dim() != 3 or atlas.shape[0] != 4:
         raise ValueError("sprite_tiles: atlas (4, AH, AW) expected")
     out = torch.empty_like(fb)
-    err = _cuda.library().bt_sprite_tiles(
-        fb.data_ptr(), pk.data_ptr(), pair_sprite.data_ptr(),
-        starts.data_ptr(), counts.data_ptr(), atlas.data_ptr(),
-        atlas.shape[1], atlas.shape[2], H, W, tile_h, tile_w, ntx,
-        int(bilinear), int(bf16), out.data_ptr(), _cuda.stream_ptr(fb))
+    lib = _cuda.library()
+    with torch.cuda.device(dev):
+        err = lib.bt_sprite_tiles(
+            fb.data_ptr(), pk.data_ptr(), pair_sprite.data_ptr(),
+            starts.data_ptr(), counts.data_ptr(), atlas.data_ptr(),
+            atlas.shape[1], atlas.shape[2], H, W, tile_h, tile_w, ntx,
+            int(bilinear), int(bf16), out.data_ptr(), _cuda.stream_ptr(fb))
     _cuda.check(err, "bt_sprite_tiles")
     sprite_tiles.launches += 1
     return out

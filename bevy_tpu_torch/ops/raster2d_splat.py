@@ -242,7 +242,9 @@ def sprite_splat(fb, pk, win, blk_win, blk_start, blk_count, atlas, *,
     block of a 128-column strip and walks its windows in order)."""
     kw = dict(win_h=win_h, bilinear=bilinear, bf16=bf16, rotated=rotated,
               alpha_only=alpha_only)
-    if fb.device.type == "cpu":
+    dev = _cuda.call_device(fb, pk, win, blk_win, blk_start, blk_count,
+                            atlas)
+    if dev.type == "cpu":
         return _sprite_splat_plain(fb, pk, win, blk_win, blk_start,
                                    blk_count, atlas, **kw)
     _, H, W = fb.shape
@@ -263,11 +265,13 @@ def sprite_splat(fb, pk, win, blk_win, blk_start, blk_count, atlas, *,
     bits = int(bilinear) | int(bf16) << 1 | int(rotated) << 2 | \
         int(alpha_only) << 3
     out = torch.empty_like(fb)
-    err = _cuda.library().bt_sprite_splat(
-        fb.data_ptr(), pk.data_ptr(), win.data_ptr(), blk_win.data_ptr(),
-        blk_start.data_ptr(), blk_count.data_ptr(), atlas.data_ptr(),
-        atlas.shape[1], atlas.shape[2], H, W, nb // ncols, win_h, bits,
-        out.data_ptr(), _cuda.stream_ptr(fb))
+    lib = _cuda.library()
+    with torch.cuda.device(dev):
+        err = lib.bt_sprite_splat(
+            fb.data_ptr(), pk.data_ptr(), win.data_ptr(), blk_win.data_ptr(),
+            blk_start.data_ptr(), blk_count.data_ptr(), atlas.data_ptr(),
+            atlas.shape[1], atlas.shape[2], H, W, nb // ncols, win_h, bits,
+            out.data_ptr(), _cuda.stream_ptr(fb))
     _cuda.check(err, "bt_sprite_splat")
     sprite_splat.launches += 1
     return out

@@ -12,6 +12,15 @@ bevy's GPU-driven meshlet raster, `bevy_pbr/src/meshlet/`).
    depth + winner id into the framebuffer (kernel B1,
    `csrc/splat_raster.cu`, replacing `_fused_kernel`).
 
+The two-pass path of the multi-device raster (parallel/raster.py) splits
+step 3: `compact_cluster_tris` sorts each cluster's triangles valid-first,
+`eval_windows` (plain PyTorch, as the JAX package's is XLA) evaluates every
+window into packed values — reverse-z depth with the low ID_BITS mantissa
+bits replaced by the triangle-in-cluster index — and `composite_windows`
+merges them in window order (kernel B6, `csrc/window_composite.cu`,
+replacing `_composite_kernel`). The depth this path writes carries the
+packed z.
+
 Merge order. The TPU ran windows one after another, so each window's
 read-modify-write saw all earlier ones. Under the strict `z > cur` test,
 that sequential result at a pixel is exactly the lexicographic maximum of
@@ -29,9 +38,12 @@ import torch
 
 from bevy_tpu_torch.ops import _cuda
 from bevy_tpu_torch.ops.binning import expand_runs
+from bevy_tpu_torch.ops.raster3d_visbuf import ZREC
 
 WIN_W = 128          # window width = one 128-px framebuffer column block
 REC_FIELDS = 13      # triangle record: 3 edge planes (9) + z plane (3) + id
+ID_BITS = 4          # low mantissa bits of packed z = tri-in-cluster id
+ID_MASK = (1 << ID_BITS) - 1
 _LOW = 0xFFFFFFFF    # low key bits of the incoming framebuffer value
 _HI = 1 << 32        # key = order(z) * _HI | low bits
 
@@ -204,6 +216,84 @@ def build_windows(aabb, cl_valid, *, win_h, width, height, budget,
     }
 
 
+def compact_cluster_tris(zrec, cs: int):
+    """Sort each cluster's triangles valid-first (invalid = backface or
+    padding, marked by tri_id < 0 in slot 12), stably, so an `eval_tris`
+    cap keeps the valid ones. Returns (zrec_sorted (T, ZREC), the most
+    valid triangles in a cluster, a 0-dim tensor)."""
+    t = zrec.shape[0]
+    r = zrec.reshape(t // cs, cs, ZREC)
+    invalid = r[:, :, 12] < 0
+    order = torch.argsort(invalid.to(torch.int32), dim=1, stable=True)
+    r = torch.take_along_dim(r, order[:, :, None], dim=1)
+    return r.reshape(t, ZREC), torch.amax(torch.sum(~invalid, 1))
+
+
+def _eval_block(rec, owner, meta, *, win_h, cs, id_base):
+    """Packed values of one block of windows. rec (b, ntri, ZREC), owner
+    and meta (b,). Each slot: inside where the largest edge and -z are
+    below 0 (zeroed planes of invalid triangles give z == 0 and fail);
+    the cluster-local id (slot 12 holds the global id) replaces the low
+    ID_BITS of z; the block keeps the maximum. Returns (b, win_h, 128)."""
+    dev = rec.device
+    lane = torch.arange(WIN_W, dtype=torch.int32, device=dev)
+    row = torch.arange(win_h, dtype=torch.int32, device=dev)
+    px = ((meta // 2048)[:, None, None] * WIN_W + lane[None, None, :]
+          ).to(torch.float32) + 0.5                       # (b, 1, 128)
+    py = ((meta % 2048)[:, None, None] + row[None, :, None]
+          ).to(torch.float32) + 0.5                       # (b, win_h, 1)
+    acc = torch.zeros((owner.shape[0], win_h, WIN_W), dtype=torch.float32,
+                      device=dev)
+    for s in range(rec.shape[1]):
+        def d(k, _s=s):
+            return rec[:, _s, k][:, None, None]
+        emax = torch.maximum(torch.maximum(
+            d(0) * px + d(1) * py + d(2),
+            d(3) * px + d(4) * py + d(5)),
+            d(6) * px + d(7) * py + d(8))
+        z = d(9) * px + d(10) * py + d(11)
+        ok = torch.maximum(emax, -z) < 0
+        lid = (rec[:, s, 12].to(torch.int32) - id_base - owner * cs) & ID_MASK
+        packed = ((z.view(torch.int32) & ~ID_MASK) | lid[:, None, None]
+                  ).view(torch.float32)
+        acc = torch.maximum(acc, torch.where(ok, packed, 0.0))
+    return acc
+
+
+def eval_windows(zrec, cs: int, owner, meta, wvalid, *, win_h,
+                 eval_tris=None, chunk=4096, id_base=0):
+    """Evaluate cluster triangles over their windows (plain PyTorch; the
+    JAX package's is XLA, no kernel).
+
+    zrec (T, ZREC), compacted by compact_cluster_tris where `eval_tris`
+    caps the slots; owner/meta/wvalid from build_windows; id_base the
+    first global triangle id of this zrec. Returns (B, win_h, 128) float32
+    packed values: reverse-z depth with the low ID_BITS mantissa bits
+    replaced by the triangle-in-cluster index (0 = no hit).
+
+    The JAX package loops over the valid prefix only (a `fori_loop` with a
+    trip count read from `wvalid`). Here every window of the budget is
+    evaluated, `chunk` at a time, so the frame makes no host read; windows
+    past the prefix hold values that composite_windows never reads. The
+    cost therefore follows the budget, not the window count."""
+    del wvalid                       # the whole budget is evaluated
+    ncl = zrec.shape[0] // cs
+    ntri = cs if eval_tris is None else min(eval_tris, cs)
+    if cs > (1 << ID_BITS):
+        raise ValueError(f"cluster size {cs} exceeds the {ID_BITS} packed "
+                         f"id bits")
+    recs = zrec.reshape(ncl, cs, ZREC)[:, :ntri]
+    b = owner.shape[0]
+    out = torch.empty((b, win_h, WIN_W), dtype=torch.float32,
+                      device=zrec.device)
+    for start in range(0, b, chunk):
+        o = owner[start:start + chunk]
+        out[start:start + chunk] = _eval_block(
+            recs[o.long()], o, meta[start:start + chunk], win_h=win_h, cs=cs,
+            id_base=id_base)
+    return out
+
+
 # ----------------------------------------------------------------------
 # B1: fused window evaluate + composite
 
@@ -294,7 +384,8 @@ def fused_eval_composite(depth, winner, rec_rows, owner, meta, wvalid, *,
     if ntri * stride > row_len:
         raise ValueError(f"{ntri} slots of stride {stride} exceed the "
                          f"{row_len}-float record row")
-    if depth.device.type == "cpu":
+    dev = _cuda.call_device(depth, winner, rec_rows, owner, meta, wvalid)
+    if dev.type == "cpu":
         return _fused_plain(depth, winner, rec_rows, owner, meta, wvalid,
                             win_h=win_h, ntri=ntri, nedge=nedge)
     H, W = depth.shape
@@ -311,14 +402,106 @@ def fused_eval_composite(depth, winner, rec_rows, owner, meta, wvalid, *,
     dep_out = torch.empty_like(depth)
     win_out = torch.empty_like(winner)
     lib = _cuda.library()
-    err = lib.bt_splat_fused(
-        depth.data_ptr(), winner.data_ptr(), rec_rows.data_ptr(), row_len,
-        owner.data_ptr(), meta.data_ptr(), wvalid.data_ptr(), nb, ntri,
-        nedge, win_h, H, W, key.data_ptr(), dep_out.data_ptr(),
-        win_out.data_ptr(), _cuda.stream_ptr(depth))
+    with torch.cuda.device(dev):
+        err = lib.bt_splat_fused(
+            depth.data_ptr(), winner.data_ptr(), rec_rows.data_ptr(),
+            row_len, owner.data_ptr(), meta.data_ptr(), wvalid.data_ptr(),
+            nb, ntri, nedge, win_h, H, W, key.data_ptr(), dep_out.data_ptr(),
+            win_out.data_ptr(), _cuda.stream_ptr(depth))
     _cuda.check(err, "bt_splat_fused")
     fused_eval_composite.launches += 1
     return dep_out, win_out
 
 
 fused_eval_composite.launches = 0
+
+
+# ----------------------------------------------------------------------
+# B6: window composite
+
+def _composite_plain(depth, winner, windows, owner, meta, wvalid, *, win_h,
+                     cs, chunk=4096):
+    """Plain PyTorch version of B6: a scatter-max of the (dz, -window) keys
+    of every in-frame pixel of every valid window where dz beats the
+    incoming depth (strict), then the decode."""
+    H, W = depth.shape
+    dev = depth.device
+    d0 = depth.reshape(-1)
+    key = torch.cat([order_key(d0) * _HI | _LOW,
+                     torch.zeros(1, dtype=torch.int64, device=dev)])
+    lane = torch.arange(WIN_W, dtype=torch.int32, device=dev)
+    row = torch.arange(win_h, dtype=torch.int32, device=dev)
+    for start in range(0, owner.shape[0], chunk):
+        m = meta[start:start + chunk]
+        dz = windows[start:start + chunk]                  # (b, win_h, 128)
+        x = ((m // 2048) * WIN_W)[:, None, None] + lane[None, None, :]
+        y = (m % 2048)[:, None, None] + row[None, :, None]
+        inb = (x < W) & (y < H) & wvalid[start:start + chunk, None, None]
+        p = (y.clamp(max=H - 1) * W + x.clamp(max=W - 1)).to(torch.int64)
+        take = inb & (dz > d0[p])
+        w = torch.arange(start, start + m.shape[0], device=dev)
+        k = order_key(dz) * _HI | (0xFFFFFFFE - w)[:, None, None]
+        key.scatter_reduce_(0, torch.where(take, p, H * W).reshape(-1),
+                            k.reshape(-1), "amax")
+    key = key[:H * W]
+    low = key & _LOW
+    changed = low != _LOW
+    w = torch.where(changed, 0xFFFFFFFE - low, 0)
+    hi = torch.div(key, _HI, rounding_mode="floor")
+    dz = _key_float(hi)
+    lid = dz.view(torch.int32) & ID_MASK
+    glob = (owner[w] * cs + lid).to(torch.float32)
+    dep = torch.where(changed, dz, d0)
+    win = torch.where(changed, glob, winner.reshape(-1))
+    return dep.reshape(H, W), win.reshape(H, W)
+
+
+def composite_windows(depth, winner, windows, owner, meta, wvalid, *,
+                      win_h=32, cs=12):
+    """Merge evaluated windows into the framebuffer (kernel B6; replaces
+    the JAX package's `composite_windows` → `_composite_kernel`).
+
+    depth/winner (H, W) f32; windows (B, win_h, 128) packed from
+    eval_windows; owner (B,) int32 each window's cluster (global: the
+    shard's offset added), meta (B,) int32 col*2048 + y0 and wvalid (B,)
+    bool, a valid prefix, from build_windows. In window order, a pixel
+    takes window w where its packed dz > the current depth (strictly),
+    writing depth = dz and winner = float(owner[w] * cs + (bits(dz) & 15)):
+    the first writer wins ties between windows, and the incoming value wins
+    ties against every window. Returns new (depth, winner).
+
+    Windows at single-band clusters' own y0 overlap, so the merge is the
+    64-bit key max of B1 (`order(dz) << 32 | (0xFFFFFFFE - w)`, the
+    incoming value's low bits 0xFFFFFFFF) and a decode — the windows may
+    run in any order. CPU tensors run the plain PyTorch version; CUDA
+    tensors launch `csrc/window_composite.cu` (one CTA a window)."""
+    dev = _cuda.call_device(depth, winner, windows, owner, meta, wvalid)
+    if dev.type == "cpu":
+        return _composite_plain(depth, winner, windows, owner, meta, wvalid,
+                                win_h=win_h, cs=cs)
+    H, W = depth.shape
+    nb = owner.shape[0]
+    _cuda.require(depth, "depth", torch.float32)
+    _cuda.require(winner, "winner", torch.float32, (H, W))
+    _cuda.require(windows, "windows", torch.float32, (nb, win_h, WIN_W))
+    _cuda.require(owner, "owner", torch.int32, (nb,))
+    _cuda.require(meta, "meta", torch.int32, (nb,))
+    _cuda.require(wvalid, "wvalid", torch.bool, (nb,))
+    if nb >= 0xFFFFFFFE or cs > (1 << ID_BITS):
+        raise ValueError("composite_windows: unsupported shape")
+    key = torch.empty((H, W), dtype=torch.int64, device=dev)
+    dep_out = torch.empty_like(depth)
+    win_out = torch.empty_like(winner)
+    lib = _cuda.library()
+    with torch.cuda.device(dev):
+        err = lib.bt_window_composite(
+            depth.data_ptr(), winner.data_ptr(), windows.data_ptr(),
+            owner.data_ptr(), meta.data_ptr(), wvalid.data_ptr(), nb, win_h,
+            cs, H, W, key.data_ptr(), dep_out.data_ptr(), win_out.data_ptr(),
+            _cuda.stream_ptr(depth))
+    _cuda.check(err, "bt_window_composite")
+    composite_windows.launches += 1
+    return dep_out, win_out
+
+
+composite_windows.launches = 0

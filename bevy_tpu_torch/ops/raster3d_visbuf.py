@@ -285,7 +285,8 @@ def raster_visbuf(depth, winner, recs, cl_table, cl_counts, *, tile_h=32,
     pre-gathered per-tile copies, tile_chunk_records — a block loading its
     own rows needs no copy). CPU tensors run the plain PyTorch version;
     CUDA tensors launch `csrc/stream_raster.cu`."""
-    if depth.device.type == "cpu":
+    dev = _cuda.call_device(depth, winner, recs, cl_table, cl_counts)
+    if dev.type == "cpu":
         return _raster_visbuf_plain(depth, winner, recs, cl_table, cl_counts,
                                     tile_h=tile_h, tile_w=tile_w, cs=cs)
     if depth.dim() != 2 or recs.dim() != 2 or cl_table.dim() != 2:
@@ -307,10 +308,11 @@ def raster_visbuf(depth, winner, recs, cl_table, cl_counts, *, tile_h=32,
     dep_out = depth.clone()
     win_out = winner.clone()
     lib = _cuda.library()
-    err = lib.bt_stream_raster(
-        recs.data_ptr(), rec_w, cl_table.data_ptr(), max_cl,
-        cl_counts.data_ptr(), nt, ntx, cs, tile_h, tile_w, H, W,
-        dep_out.data_ptr(), win_out.data_ptr(), _cuda.stream_ptr(depth))
+    with torch.cuda.device(dev):
+        err = lib.bt_stream_raster(
+            recs.data_ptr(), rec_w, cl_table.data_ptr(), max_cl,
+            cl_counts.data_ptr(), nt, ntx, cs, tile_h, tile_w, H, W,
+            dep_out.data_ptr(), win_out.data_ptr(), _cuda.stream_ptr(depth))
     _cuda.check(err, "bt_stream_raster")
     raster_visbuf.launches += 1
     return dep_out, win_out

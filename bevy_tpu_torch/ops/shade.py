@@ -389,7 +389,9 @@ def deferred_shade(gbuffer, depth, light_table, tile_counts, params,
     flags = dict(spot=spot, rect=rect, clearcoat=clearcoat,
                  anisotropy=anisotropy, reflectance=reflectance,
                  specular_tint=specular_tint)
-    if depth.device.type == "cpu":
+    dev = _cuda.call_device(gbuffer, depth, light_table, tile_counts, params,
+                            shadow)
+    if dev.type == "cpu":
         return _deferred_shade_plain(gbuffer, depth, light_table,
                                      tile_counts, params, shadow,
                                      tile_h=tile_h, tile_w=tile_w, **flags)
@@ -420,11 +422,13 @@ def deferred_shade(gbuffer, depth, light_table, tile_counts, params,
     bits = sum(1 << i for i, name in enumerate(VARIANTS) if flags[name])
     out = torch.empty((4, H, W), dtype=torch.float32, device=depth.device)
     lib = _cuda.library()
-    err = lib.bt_deferred_shade(
-        gbuffer.data_ptr(), nplanes, depth.data_ptr(),
-        0 if shadow is None else shadow.data_ptr(), light_table.data_ptr(),
-        nf, mpt, tile_counts.data_ptr(), params.data_ptr(), H, W, tile_h,
-        tile_w, ntx, bits, out.data_ptr(), _cuda.stream_ptr(depth))
+    with torch.cuda.device(dev):
+        err = lib.bt_deferred_shade(
+            gbuffer.data_ptr(), nplanes, depth.data_ptr(),
+            0 if shadow is None else shadow.data_ptr(),
+            light_table.data_ptr(), nf, mpt, tile_counts.data_ptr(),
+            params.data_ptr(), H, W, tile_h, tile_w, ntx, bits,
+            out.data_ptr(), _cuda.stream_ptr(depth))
     _cuda.check(err, "bt_deferred_shade")
     deferred_shade.launches += 1
     return out

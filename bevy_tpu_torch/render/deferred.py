@@ -14,10 +14,13 @@ the light record width (8, 16 or 24 fields) are chosen by a prepare hook
 from the host's view of the world (structural change only), so a frame
 reads nothing back from the device.
 
+With `shards` the shade runs in row bands over a ShardMesh
+(parallel/raster.py `sharded_deferred_shade`), the lights binned over the
+grid padded to whole bands.
+
 Not ported, each raising NotImplementedError that names its ROADMAP item:
-row-band sharding (A10), the directional shadow map (A8), specular tint
-(A4b) and anisotropy (A5) in the plugin; the kernel itself implements
-every variant.
+the directional shadow map (A8), specular tint (A4b) and anisotropy (A5)
+in the plugin; the kernel itself implements every variant.
 """
 
 from __future__ import annotations
@@ -35,6 +38,8 @@ from bevy_tpu_torch.ecs.query import Query, Read, Res, ResMut
 from bevy_tpu_torch.ecs.system import system
 from bevy_tpu_torch.math.quat import quat_rotate_vec3
 from bevy_tpu_torch.ops.shade import bin_lights, deferred_shade
+from bevy_tpu_torch.parallel import as_mesh
+from bevy_tpu_torch.parallel import raster as par_raster
 from bevy_tpu_torch.render.camera import (
     Camera3d, perspective_infinite_reverse, pick_camera, view_matrix,
 )
@@ -225,7 +230,7 @@ def light_screen_bounds(pos, rng, view, fov, near, width, height):
 
 def make_deferred_shade(width, height, plugin, device, tile_h=32,
                         tile_w=128, pairs_per_light=4,
-                        max_lights_per_tile=256):
+                        max_lights_per_tile=256, shards=None):
     from bevy_tpu_torch.transform import GlobalTransform
 
     size_pad = torch.tensor([width, height, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0],
@@ -263,7 +268,13 @@ def make_deferred_shade(width, height, plugin, device, tile_h=32,
             vz, center, r_px = light_screen_bounds(pos, rng, view, fov, near,
                                                    width, height)
             active = lmask & has_cam & (vz + rng > near)
-            nty = (height + tile_h - 1) // tile_h
+            if shards is not None:
+                # bin over the grid padded to whole bands, so each band's
+                # tile rows are one slice of the table
+                n = shards.size
+                nty = (height + n * tile_h - 1) // (n * tile_h) * n
+            else:
+                nty = (height + tile_h - 1) // tile_h
             ntx = (width + tile_w - 1) // tile_w
             table, counts, lstats = bin_lights(
                 center, r_px, active, nty, ntx, tile_h, tile_w,
@@ -277,13 +288,18 @@ def make_deferred_shade(width, height, plugin, device, tile_h=32,
                 inv_vp.reshape(16), ldir, lcol, amb.color * amb.brightness,
                 size_pad[:2], clear.color, cam_gt.translation[ci],
                 size_pad[2:]])
-        with span("lights:shade_B3"):
-            target.color = deferred_shade(
-                target.gbuffer, target.depth, table, counts, params, None,
-                tile_h=tile_h, tile_w=tile_w, spot=flags["spot"],
-                rect=flags["rect"], clearcoat=flags["clearcoat"],
-                anisotropy=False, reflectance=flags["reflectance"],
-                specular_tint=False)
+        variant = dict(spot=flags["spot"], rect=flags["rect"],
+                       clearcoat=flags["clearcoat"], anisotropy=False,
+                       reflectance=flags["reflectance"], specular_tint=False)
+        if shards is not None:
+            target.color = par_raster.sharded_deferred_shade(
+                shards, target.gbuffer, target.depth, table, counts, params,
+                None, tile_h=tile_h, tile_w=tile_w, **variant)
+        else:
+            with span("lights:shade_B3"):
+                target.color = deferred_shade(
+                    target.gbuffer, target.depth, table, counts, params, None,
+                    tile_h=tile_h, tile_w=tile_w, **variant)
         # as the reference: into the shared counters, and the port's own
         # light-only counters beside them
         lpo = lstats["light_pair_overflow"]
@@ -299,16 +315,16 @@ def make_deferred_shade(width, height, plugin, device, tile_h=32,
 class DeferredLightingPlugin(Plugin):
     """ref: DeferredLightingPlugin. Pair it with
     Mesh3dPlugin(deferred=True). The kernel route follows the device of
-    the tensors."""
+    the tensors. shards: None, a device count (the first that many CUDA
+    cards) or a ShardMesh: the shade then runs in row bands over them."""
 
     def __init__(self, tile_h=32, tile_w=128, pairs_per_light=4,
                  max_lights_per_tile=256, shards=None):
-        if shards is not None:
-            raise _unported("row-band sharded deferred shading", "A10")
         self._flags = None
         self.cfg = dict(tile_h=tile_h, tile_w=tile_w,
                         pairs_per_light=pairs_per_light,
-                        max_lights_per_tile=max_lights_per_tile)
+                        max_lights_per_tile=max_lights_per_tile,
+                        shards=as_mesh(shards))
 
     def build(self, app):
         rp = next((p for p in app._plugins if isinstance(p, RenderPlugin)),

@@ -15,9 +15,11 @@ render/deferred.py shades it).
 Ported: the uniform-group, opaque, single full-frame camera, flat-forward
 and flat-deferred (`flat_def`) branches of `make_mesh_pass`, with the
 instance sphere-frustum cull, the identity `run_phase` selection, two
-window classes and the compacted fallback. Every other feature of the
-JAX mesh pass raises NotImplementedError naming the ROADMAP item that
-brings it.
+window classes and the compacted fallback, and the multi-device branch
+(`Mesh3dPlugin(shards=...)`: flat-forward groups raster sharded over a
+ShardMesh, parallel/raster.py `sharded_instance_raster`, window composite
+B6). Every other feature of the JAX mesh pass raises NotImplementedError
+naming the ROADMAP item that brings it.
 """
 
 from __future__ import annotations
@@ -42,6 +44,8 @@ from bevy_tpu_torch.ops.raster3d_visbuf import (
     pack_flat_gbuf, pack_flat_shade, pack_planes_h, raster_visbuf,
     resolve_flat, resolve_gbuf_flat,
 )
+from bevy_tpu_torch.parallel import as_mesh
+from bevy_tpu_torch.parallel import raster as par_raster
 from bevy_tpu_torch.render.camera import (
     Camera3d, perspective_infinite_reverse, pick_camera, view_matrix,
 )
@@ -438,6 +442,24 @@ def make_mesh_pass(width, height, plugin, tile_h=32, tile_w=128,
                     "clearcoat", "clearcoat_roughness", "anisotropy_strength",
                     "anisotropy_rotation", "parallax_depth_scale",
                     "reflectance")]
+            if plugin.shard_mesh is not None and not deferred:
+                # multi-device: the flat-forward group rasters sharded over
+                # instances (the padding instances are invalid)
+                shm = plugin.shard_mesh
+                padn = (-clip.shape[0]) % shm.size
+                clip, nrm, inst_ok, mat9 = (
+                    torch.cat([x, x.new_zeros((padn,) + x.shape[1:])])
+                    for x in (clip, nrm, inst_ok, torch.cat(cols, 1)))
+                target.color, target.depth, ovf, nfb = \
+                    par_raster.sharded_instance_raster(
+                        shm, clip, nrm, grp["tris"], inst_ok, mat9, lv,
+                        target.color, target.depth, width=width,
+                        height=height, win_h=win_h,
+                        window_budget=max(window_budget // shm.size, 1024),
+                        eval_tris=eval_tris)
+                stats.pair_overflow = stats.pair_overflow + ovf
+                stats.fallback_clusters = stats.fallback_clusters + nfb
+                continue
             raster_batched(
                 clip, nrm, grp, inst_ok, torch.cat(cols, 1), lv, target,
                 stats, width=width, height=height, tile_h=tile_h,
@@ -450,7 +472,13 @@ def make_mesh_pass(width, height, plugin, tile_h=32, tile_w=128,
 
 class Mesh3dPlugin(Plugin):
     """ref: MeshPlugin + PbrPlugin's pipeline half. Owns the MeshPool;
-    add meshes with `add_mesh` before the first frame."""
+    add meshes with `add_mesh` before the first frame.
+
+    shards: None, a device count (the first that many CUDA cards) or a
+    ShardMesh: flat-forward groups then raster over those devices
+    (parallel/raster.py). Clusters too large for windows are then counted
+    into pair_overflow and fallback_clusters, not drawn, as in the JAX
+    package. A deferred pass stays on one device."""
 
     def __init__(self, pool: MeshPool = None, tile_h=32, tile_w=128,
                  pairs_per_tri=2, max_per_tile=256, backend="auto",
@@ -464,8 +492,7 @@ class Mesh3dPlugin(Plugin):
                 (occlusion_cull, "two-phase occlusion culling", "A8"),
                 (material_fn is not None, "custom materials", "A8"),
                 (bvh_cull, "the BVH cluster cull", "A8"),
-                (motion_vectors, "motion vectors", "A8"),
-                (shards is not None, "multi-device rendering", "A10")):
+                (motion_vectors, "motion vectors", "A8")):
             if on:
                 raise _unported(feature, item)
         # pairs_per_tri and the pallas/interpret backends have no effect:
@@ -473,6 +500,7 @@ class Mesh3dPlugin(Plugin):
         # writes the G-buffer that DeferredLightingPlugin creates and shades
         self.pool = pool or MeshPool()
         self._groups = None
+        self.shard_mesh = as_mesh(shards)
         self.cfg = dict(tile_h=tile_h, tile_w=tile_w,
                         max_per_tile=max_per_tile, win_h=win_h,
                         window_budget=window_budget, eval_tris=eval_tris,

@@ -45,7 +45,31 @@ source, all started together), then:
    budget arithmetic, that B5 was launched once a frame and that
    pair_overflow and visible_overflow are 0;
 14. times B4 (a many_sprites frame) and B5 (a bevymark frame) against
-   their plain versions at full size, each kernel bit-equal to plain there.
+   their plain versions at full size, each kernel bit-equal to plain there;
+15. holds the window composite (B6) against its plain version, bit for bit,
+   on a scene of overlapping, tying windows and on every call of the
+   cluster-sharded flat raster (the scene of tests/test_sharded_raster.py,
+   8 shards, all on the one card), whose image must equal the one-shard
+   image;
+16. renders the many_cubes twin with 8 shards and without at the
+   configuration of tests/test_sharded_cubes.py: identical images, B6 against
+   plain on every call;
+17. runs the full-size many_cubes frame with 4 shards, times 20 frames with
+   CUDA events, checks B6 was launched 2 window classes x 4 shards a frame
+   and that pair_overflow counts nothing but the fallback clusters (the
+   sharded path does not draw them: no window is dropped), prints the
+   pixels that differ from the unsharded frame, and times B6 against its
+   plain version and one scatter_reduce_ call;
+18. renders the many_lights golden configuration with a 4-band shade:
+   against tests/goldens/lights_f1.png, identical to the unsharded image,
+   B1/B2/B3 against plain on every call;
+19. runs the full-size many_lights frame with a 4-band shade, times 20
+   frames, checks B3 was launched 4 times a frame, holds each band's B3
+   call of one frame against plain (rtol/atol 1e-5), prints the overflows,
+   and checks the image equals the unsharded frame's.
+
+The shards of phases 15-19 all sit on the one card (a ShardMesh may repeat
+a device): their work runs one shard after another.
 
 Each kernel's bound (the least time the card could take for the same work:
 the larger of its bytes over 3.35 TB/s and its FP32 operations over 67
@@ -86,6 +110,8 @@ KERNELS = {
            "bevy_tpu/ops/raster2d_pallas.py:50"),
     "B5": ("sprite_splat", "bevy_tpu_torch/csrc/sprite_splat.cu",
            "bevy_tpu/ops/raster2d_splat.py:64"),
+    "B6": ("composite_windows", "bevy_tpu_torch/csrc/window_composite.cu",
+           "bevy_tpu/ops/raster3d_splat.py:511"),
 }
 BREAKOUT_GOLDEN = ROOT / "tests" / "goldens" / "breakout_f25.png"
 BREAKOUT_GOLDEN_KW = dict(width=320, height=200, camera_scale=3.2,
@@ -148,29 +174,33 @@ def read_png_rgba8(path):
 
 
 class Recorder:
-    """Wraps the kernel entry points where the render modules call them
-    (mesh3d: B1, B2; deferred: B3; sprite: B4, B5) to keep the arguments
-    of every call (for the kernel-vs-plain comparisons)."""
+    """Wraps the kernel entry points where the port's modules call them
+    (mesh3d: B1, B2; deferred and parallel/raster: B3; sprite: B4, B5;
+    parallel/raster: B6) to keep the arguments of every call (for the
+    kernel-vs-plain comparisons)."""
 
     def __init__(self):
+        from bevy_tpu_torch.parallel import raster as par_raster
         from bevy_tpu_torch.render import deferred, mesh3d, sprite
-        self.sites = {"B1": mesh3d, "B2": mesh3d, "B3": deferred,
-                      "B4": sprite, "B5": sprite}
+        self.sites = {"B1": (mesh3d,), "B2": (mesh3d,),
+                      "B3": (deferred, par_raster), "B4": (sprite,),
+                      "B5": (sprite,), "B6": (par_raster,)}
         self.calls = {kid: [] for kid in self.sites}
-        self.orig = {kid: getattr(mod, KERNELS[kid][0])
-                     for kid, mod in self.sites.items()}
+        self.orig = {kid: kernel_fn(kid) for kid in self.sites}
 
     def __enter__(self):
         for kid, fn in self.orig.items():
             def rec(*a, _k=kid, _f=fn, **kw):
                 self.calls[_k].append((a, kw))
                 return _f(*a, **kw)
-            setattr(self.sites[kid], KERNELS[kid][0], rec)
+            for mod in self.sites[kid]:
+                setattr(mod, KERNELS[kid][0], rec)
         return self
 
     def __exit__(self, *exc):
         for kid, fn in self.orig.items():
-            setattr(self.sites[kid], KERNELS[kid][0], fn)
+            for mod in self.sites[kid]:
+                setattr(mod, KERNELS[kid][0], fn)
 
 
 def plain_fn(kid):
@@ -180,7 +210,8 @@ def plain_fn(kid):
             "B2": raster3d_visbuf._raster_visbuf_plain,
             "B3": shade._deferred_shade_plain,
             "B4": raster2d._sprite_tiles_plain,
-            "B5": raster2d_splat._sprite_splat_plain}[kid]
+            "B5": raster2d_splat._sprite_splat_plain,
+            "B6": raster3d_splat._composite_plain}[kid]
 
 
 def kernel_fn(kid):
@@ -190,7 +221,8 @@ def kernel_fn(kid):
             "B2": raster3d_visbuf.raster_visbuf,
             "B3": shade.deferred_shade,
             "B4": raster2d.sprite_tiles,
-            "B5": raster2d_splat.sprite_splat}[kid]
+            "B5": raster2d_splat.sprite_splat,
+            "B6": raster3d_splat.composite_windows}[kid]
 
 
 def reset_launches():
@@ -203,7 +235,7 @@ def read_launches():
 
 
 def compare(kid, a, kw):
-    """Kernel vs plain on one recorded call. B1/B2: asserts bit equality
+    """Kernel vs plain on one recorded call. B1/B2/B6: asserts bit equality
     of depth and winner; B3: asserts rtol/atol SHADE_TOL; B4/B5: asserts
     bit equality of the framebuffer. Returns the max abs error (and, for
     B3, the max relative error)."""
@@ -511,8 +543,59 @@ def bound_b5(a, kw):
                                   f"{covered} covered",)
 
 
+def _b6_pixels(a, kw):
+    """The frame index (nv, win_h, 128) of every pixel of the valid
+    windows of one B6 call, and which of them lie in the frame."""
+    depth, _, windows, owner, meta, wvalid = a
+    H, W = depth.shape
+    dev = depth.device
+    m = meta[wvalid]
+    x = ((m // 2048) * 128)[:, None, None] + \
+        torch.arange(128, device=dev)[None, None, :]
+    y = (m % 2048)[:, None, None] + \
+        torch.arange(kw["win_h"], device=dev)[None, :, None]
+    return (y.clamp(max=H - 1) * W + x.clamp(max=W - 1)).long(), \
+        (x < W) & (y < H)
+
+
+def bound_b6(a, kw):
+    """B6: each valid window's in-frame pixels read once (4 B), each
+    window's valid flag (1 B) and each valid window's meta and owner (8 B),
+    and the depth and winner of every pixel a window touches read and
+    written once (16 B); one compare per window pixel read."""
+    depth, _, windows, owner, meta, wvalid = a
+    p, inb = _b6_pixels(a, kw)
+    npx = int(inb.sum())
+    touched = torch.zeros(depth.numel(), dtype=torch.bool,
+                          device=depth.device)
+    touched[p[inb]] = True
+    nbytes = 4 * npx + owner.numel() + 8 * int(wvalid.sum()) + \
+        16 * int(touched.sum())
+    return _bound(nbytes, npx) + (f"{npx} window pixels, "
+                                  f"{int(touched.sum())} touched",)
+
+
+def library_b6(a, kw):
+    """One `scatter_reduce_(amax)` over the int64 keys of B6's merge (the
+    plain version's keys, every valid window at once): the one PyTorch
+    call that computes the merge, before the decode."""
+    from bevy_tpu_torch.ops import raster3d_splat as sp
+    depth, _, windows, owner, meta, wvalid = a
+    p, inb = _b6_pixels(a, kw)
+    dz = windows[wvalid]
+    d0 = depth.reshape(-1)
+    take = inb & (dz > d0[p])
+    w = torch.nonzero(wvalid)[:, 0]
+    keys = (sp.order_key(dz) * sp._HI |
+            (0xFFFFFFFE - w)[:, None, None]).reshape(-1)
+    idx = torch.where(take, p, depth.numel()).reshape(-1)
+    key = torch.cat([sp.order_key(d0) * sp._HI | sp._LOW,
+                     torch.zeros(1, dtype=torch.int64, device=depth.device)])
+    return lambda: key.scatter_reduce_(0, idx, keys, "amax")
+
+
 BOUNDS = {"B1": bound_b1, "B2": bound_b2, "B3": bound_b3, "B4": bound_b4,
-          "B5": bound_b5}
+          "B5": bound_b5, "B6": bound_b6}
 
 
 def near_plane_app(device):
@@ -603,24 +686,28 @@ def timed_frames(app, n):
     return start.elapsed_time(end) / n, launches, stats, covered
 
 
-def time_kernel(kid, a, kw, launches, err):
-    """Kernel vs plain time (CUDA events, 20 and 3 launches) and the bound
-    at one recorded call; the kernels-line entry."""
+def time_kernel(kid, a, kw, launches, err, library=None):
+    """Kernel vs plain time (CUDA events, 20 and 3 launches), the time of
+    `library` (one PyTorch call computing the same function, 20 calls)
+    where there is one, and the bound at one recorded call; the
+    kernels-line entry."""
     k_ms = cuda_ms(lambda: kernel_fn(kid)(*a, **kw), 20)
     p_ms = cuda_ms(lambda: plain_fn(kid)(*a, **kw), 3)
+    lib_ms = None if library is None else cuda_ms(library, 20)
     b = BOUNDS[kid](a, kw)
     b_ms, by = b[0], b[1]
     extra = "" if len(b) < 3 else (f", {b[2]}" if isinstance(b[2], str)
                                     else f", {b[2]} (pixel, light) "
                                          f"evaluations")
+    lib = "" if lib_ms is None else f", library call {lib_ms:.4f} ms"
     log(f"{kid} {KERNELS[kid][0]} at full size: kernel {k_ms:.4f} ms, "
-        f"plain {p_ms:.4f} ms, bound {b_ms:.4f} ms ({by}{extra}), "
+        f"plain {p_ms:.4f} ms{lib}, bound {b_ms:.4f} ms ({by}{extra}), "
         f"{b_ms / k_ms:.1%} of the bound")
     name, source, replaces = KERNELS[kid]
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches, "max_abs_err": err,
             "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": by,
-            "library_ms": None}
+            "library_ms": lib_ms}
 
 
 def variants_app(device):
@@ -864,7 +951,239 @@ def sprite_phases(dev, n, smi, results):
     torch.cuda.synchronize()
 
 
+def triangle_scene(device, seed=0, n_tris=288):
+    """The scene of tests/test_sharded_raster.py on `device`: small random
+    front-facing triangles across clip space, ambient-only flat shade
+    (cc, cn, ok, mat, light)."""
+    rng = np.random.default_rng(seed)
+    centers = rng.uniform(-0.8, 0.8, (n_tris, 1, 2))
+    jitter = rng.uniform(0.02, 0.12, (n_tris, 3, 2))
+    sign = np.stack([np.zeros((n_tris, 2)),
+                     np.asarray([[0.1, 0.0]] * n_tris),
+                     np.asarray([[0.0, 0.1]] * n_tris)], 1)
+    xy = centers + sign + jitter * 0.3
+    z = rng.uniform(0.2, 0.9, (n_tris, 1, 1)).repeat(3, 1)
+    cc = np.concatenate([xy, z, np.ones((n_tris, 3, 1))],
+                        -1).astype(np.float32)
+    e1 = cc[:, 1, :2] - cc[:, 0, :2]
+    e2 = cc[:, 2, :2] - cc[:, 0, :2]
+    flip = (e1[:, 0] * e2[:, 1] - e1[:, 1] * e2[:, 0]) < 0
+    cc[flip] = cc[flip][:, [0, 2, 1]]
+    cn = np.tile(np.asarray([0.0, 0.0, 1.0], np.float32), (n_tris, 3, 1))
+    mat = np.concatenate([rng.uniform(0.2, 1.0, (n_tris, 3)),
+                          np.ones((n_tris, 1)), np.zeros((n_tris, 5))],
+                         1).astype(np.float32)
+    light = np.zeros(16, np.float32)
+    light[6:9] = 1.0
+    return [torch.tensor(x, device=device)
+            for x in (cc, cn, np.ones(n_tris, bool), mat, light)]
+
+
+COMPOSITE_KW = dict(win_h=16, cs=12)
+
+
+def composite_scene(device):
+    """B6's scene (also tests/test_torch_package.py's): 12 packed windows of
+    16 rows at 4 depth levels, overlapping at unaligned rows and running
+    past the frame's right and bottom edges, an invalid tail, and an
+    incoming depth that ties a window value. Returns the inputs
+    (depth, winner, windows, owner, meta, wvalid) on `device`; call with
+    COMPOSITE_KW."""
+    rng = np.random.RandomState(2)
+    H, W, nb = 40, 200, 12
+    win_h = COMPOSITE_KW["win_h"]
+    levels = np.array([0.0, 0.25, 0.5, 0.75], np.float32)
+    z = levels[rng.randint(0, 4, (nb, win_h, 128))]
+    ids = rng.randint(0, 16, z.shape).astype(np.int32)
+    windows = np.where(z > 0, ((z.view(np.int32) & ~15) | ids).view(
+        np.float32), 0.0).astype(np.float32)
+    col = rng.randint(0, 2, nb)
+    y0 = rng.randint(0, H - win_h + 8, nb)          # some run off the bottom
+    meta = (col * 2048 + y0).astype(np.int32)
+    owner = rng.randint(0, 50, nb).astype(np.int32)
+    wvalid = np.arange(nb) < nb - 2
+    tie = windows[windows > 0][0]         # the incoming value ties windows
+    depth = np.where(rng.uniform(size=(H, W)) < 0.3, tie,
+                     0.0).astype(np.float32)
+    winner = np.full((H, W), -1.0, np.float32)
+    return [torch.from_numpy(x).to(device)
+            for x in (depth, winner, windows, owner, meta, wvalid)]
+
+
+def image_diff(a, b):
+    """Pixels (of H x W) whose sRGB u8 colour differs, and the largest
+    channel difference."""
+    d = np.abs(a.astype(int) - b.astype(int)).max(-1)
+    return int((d > 0).sum()), int(d.max())
+
+
+def sharded_cubes_phases(dev, n, smi, results, full_img, b2_px):
+    """Phases 15-17: B6 against plain on the test scenes, the sharded
+    many_cubes twin against the unsharded one at the JAX test's
+    configuration, and the full-size sharded frame (`full_img`: the
+    unsharded full-size frame after as many frames; `b2_px`: the pixels
+    its fallback clusters drew through B2, which the sharded path does
+    not draw)."""
+    import torch_many_cubes
+    from bevy_tpu_torch.parallel import make_mesh
+    from bevy_tpu_torch.parallel.raster import sharded_flat_raster
+    from bevy_tpu_torch.render import frame_image
+
+    err = compare("B6", composite_scene(dev), COMPOSITE_KW)
+    log(f"B6 vs plain, overlapping and tying windows: bit-equal (max abs "
+        f"err {err})")
+    mesh8 = make_mesh(devices=[dev] * 8)
+    log(f"shards on this run's one card: {mesh8}")
+    kw = dict(width=128, height=64, cluster_size=12, win_h=16,
+              visible_budget=64, window_budget=2048)
+    one = sharded_flat_raster(make_mesh(devices=[dev]), *triangle_scene(dev),
+                              **kw)
+    with Recorder() as rec:
+        eight = sharded_flat_raster(mesh8, *triangle_scene(dev), **kw)
+    torch.cuda.synchronize()
+    errs = [compare("B6", a, k) for a, k in rec.calls["B6"]]
+    if len(errs) != 8:
+        raise AssertionError(f"8 shards made {len(errs)} B6 calls")
+    if not torch.equal(one[0], eight[0]) or \
+            not torch.allclose(one[1], eight[1], atol=5e-5):
+        raise AssertionError("sharded flat raster: 8 shards != 1 shard")
+    log(f"B6 vs plain, sharded flat raster scene: {len(errs)} calls "
+        f"bit-equal (max abs err {max(errs)}); 8-shard colour == 1-shard, "
+        f"covered {float((eight[1] > 0).float().mean()):.3f}")
+
+    cfg = dict(n_cubes=512, width=256, height=128, capacity=1024,
+               window_budget=8192, cull_budget=None, device=dev)
+    single = torch_many_cubes.build_app(**cfg)
+    single.run(max_frames=2, dt=1 / 60)
+    sharded = torch_many_cubes.build_app(shards=mesh8, **cfg)
+    with Recorder() as rec:
+        sharded.run(max_frames=2, dt=1 / 60)
+    torch.cuda.synchronize()
+    errs = [compare("B6", a, k) for a, k in rec.calls["B6"]]
+    if len(errs) != 2 * 2 * 8 or rec.calls["B1"] or rec.calls["B2"]:
+        raise AssertionError(f"sharded many_cubes: {len(errs)} B6 calls, "
+                             f"{len(rec.calls['B1'])} B1")
+    nd, mx = image_diff(frame_image(single), frame_image(sharded))
+    log(f"B6 vs plain, sharded many_cubes (512 cubes, 256x128, 8 shards, 2 "
+        f"frames): {len(errs)} calls bit-equal (max abs err {max(errs)}); "
+        f"image vs unsharded: {nd} pixels differ (max {mx})")
+    if nd:
+        raise AssertionError("sharded many_cubes image != unsharded")
+    del single, sharded, rec
+
+    mesh4 = make_mesh(devices=[dev] * 4)
+    app = torch_many_cubes.build_app(shards=mesh4, device=dev)
+    ms, launches, stats, covered = timed_frames(app, n)
+    log(f"many_cubes 160000 @1280x720, {mesh4.size} shards: {ms:.3f} "
+        f"ms/frame over {n} frames (CUDA events; {smi})")
+    with Recorder() as rec_full:
+        app.update(dt=1 / 60)
+    torch.cuda.synchronize()
+    img = frame_image(app)
+    nd, mx = image_diff(full_img, img)
+    outside = int(((np.abs(full_img.astype(int) - img).max(-1) > 0)
+                   & ~b2_px).sum())
+    log(f"pixels differing from the unsharded frame outside its B2 "
+        f"(fallback) footprint of {int(b2_px.sum())} pixels: {outside}")
+    log(f"launches in those {n} frames: B6 {launches['B6']} (predicted "
+        f"{2 * mesh4.size * n}), B1 {launches['B1']}, B2 {launches['B2']}; "
+        f"pair_overflow {stats['pair_overflow']} (fallback clusters "
+        f"included), fallback clusters {stats['fallback_clusters'] / n}"
+        f"/frame (not drawn when sharded); covered pixels {covered:.3f}; "
+        f"pixels differing from the unsharded frame {nd} of "
+        f"{full_img.shape[0] * full_img.shape[1]} (max channel diff {mx})")
+    if launches["B6"] != 2 * mesh4.size * n or launches["B1"] or \
+            launches["B2"]:
+        raise AssertionError(f"launches on the sharded many_cubes path: "
+                             f"{launches}")
+    if stats["pair_overflow"] != stats["fallback_clusters"]:
+        raise AssertionError(
+            f"windows dropped on the sharded many_cubes path: pair_overflow "
+            f"{stats['pair_overflow']}, fallback clusters "
+            f"{stats['fallback_clusters']}")
+    if covered < 0.05:
+        raise AssertionError("full-size sharded frame drew (almost) nothing")
+    # the frame's B6 call with the most valid windows
+    a, kw = max(rec_full.calls["B6"], key=lambda c: int(c[0][5].sum()))
+    err = compare("B6", a, kw)
+    log(f"B6 at full size: bit-equal to plain (max abs err {err}; "
+        f"{int(a[5].sum())} valid windows of {a[5].shape[0]}, win_h "
+        f"{kw['win_h']})")
+    results["B6"] = time_kernel("B6", a, kw, launches["B6"], err,
+                                library=library_b6(a, kw))
+    del app, rec_full
+    torch.cuda.empty_cache()
+
+
+def sharded_lights_phases(dev, n, smi, golden_img, full_img):
+    """Phases 18-19: the many_lights golden configuration and the full-size
+    frame with a 4-band shade, against the golden and the unsharded
+    images (`golden_img`, `full_img`: after as many frames)."""
+    import torch_many_lights
+    from bevy_tpu_torch.parallel import make_mesh
+    from bevy_tpu_torch.render import frame_image
+
+    mesh4 = make_mesh(devices=[dev] * 4)
+    lapp = torch_many_lights.build_app(device=dev, shards=mesh4,
+                                       **LIGHTS_GOLDEN_KW)
+    with Recorder() as rec:
+        lapp.update(dt=1 / 60)
+    torch.cuda.synchronize()
+    if len(rec.calls["B3"]) != mesh4.size:
+        raise AssertionError(f"{len(rec.calls['B3'])} B3 calls, one a band "
+                             f"wanted")
+    for kid in ("B1", "B2", "B3"):
+        errs = [compare(kid, a, kw) for a, kw in rec.calls[kid]]
+        errs = [e[0] if kid == "B3" else e for e in errs]
+        log(f"{kid} vs plain, sharded lights golden scene ({mesh4.size} "
+            f"bands): {len(errs)} calls (max abs err {max(errs)})")
+    img = frame_image(lapp)
+    check_golden(img, LIGHTS_GOLDEN)
+    nd, mx = image_diff(golden_img, img)
+    log(f"sharded lights golden scene vs unsharded: {nd} pixels differ "
+        f"(max {mx})")
+    if nd:
+        raise AssertionError("sharded lights image != unsharded")
+    del lapp, rec
+
+    app = torch_many_lights.build_app(device=dev, shards=mesh4)
+    ms, launches, stats, covered = timed_frames(app, n)
+    log(f"many_lights 100000 @1280x720, {mesh4.size}-band shade: {ms:.3f} "
+        f"ms/frame over {n} frames (CUDA events; {smi})")
+    with Recorder() as rec:
+        app.update(dt=1 / 60)
+    torch.cuda.synchronize()
+    if len(rec.calls["B3"]) != mesh4.size:
+        raise AssertionError(f"{len(rec.calls['B3'])} B3 calls in a "
+                             f"full-size frame, one a band wanted")
+    for a, kw in rec.calls["B3"]:
+        err = compare("B3", a, kw)
+        log(f"B3 vs plain, full-size band at row {int(a[4][34])} "
+            f"({a[0].shape[1]} rows, F={a[2].shape[1]}, lights listed "
+            f"{int(a[3].sum())}): max abs err {err[0]}, max rel err {err[1]}")
+    nd, mx = image_diff(full_img, frame_image(app))
+    log(f"launches in those {n} frames: B1 {launches['B1']}, B2 "
+        f"{launches['B2']}, B3 {launches['B3']} (predicted "
+        f"{mesh4.size * n}); light_pair_overflow "
+        f"{stats['light_pair_overflow']}, light_tile_overflow "
+        f"{stats['light_tile_overflow'] / n}/frame, pair_overflow "
+        f"{stats['pair_overflow']}; covered pixels {covered:.3f}; pixels "
+        f"differing from the unsharded frame {nd} (max channel diff {mx})")
+    if launches["B3"] != mesh4.size * n or not launches["B1"] or \
+            not launches["B2"]:
+        raise AssertionError(f"launches on the sharded many_lights path: "
+                             f"{launches}")
+    if covered < 0.5:
+        raise AssertionError("full-size sharded many_lights drew too little")
+    if nd:
+        raise AssertionError("full-size sharded many_lights image != "
+                             "unsharded")
+    del app, rec
+    torch.cuda.empty_cache()
+
+
 def main():
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py: torch.cuda.is_available() is false "
                          "— this smoke run needs a CUDA card")
@@ -897,7 +1216,8 @@ def main():
         if "Compiling entry" in ln:
             entry = ln.split("'")[1]
         elif "registers" in ln and entry is not None:
-            kind = next((k for k in ("splat_windows", "decode_keys",
+            kind = next((k for k in ("splat_windows", "merge_windows",
+                                     "decode_keys",
                                      "init_keys", "stream_tiles",
                                      "sprite_tiles", "sprite_splat", "shade")
                          if k in entry), entry)
@@ -962,8 +1282,15 @@ def main():
         a, kw = rec_full.calls[kid][-1]
         results[kid] = time_kernel(kid, a, kw, launches[kid], compare(kid, a,
                                                                       kw))
+    cubes_img = frame_image(app)
+    # the pixels B2 drew in that frame: the fallback clusters' footprint
+    a, kw = rec_full.calls["B2"][-1]
+    b2_px = (kernel_fn("B2")(*a, **kw)[0] != a[0]).cpu().numpy()
     del app, rec_full, golden_app, near_app, rec_golden, rec_near
     torch.cuda.empty_cache()
+
+    # -- the sharded many_cubes frame and B6 ------------------------------
+    sharded_cubes_phases(dev, n, smi, results, cubes_img, b2_px)
 
     # -- many_lights golden scene: B1, B2, B3 vs plain + image -----------
     lapp = torch_many_lights.build_app(device=dev, **LIGHTS_GOLDEN_KW)
@@ -981,7 +1308,8 @@ def main():
         else:
             log(f"{kid} vs plain, lights golden scene: {len(errs)} calls "
                 f"bit-equal (max abs err {max(errs)})")
-    check_golden(frame_image(lapp), LIGHTS_GOLDEN)
+    lights_img = frame_image(lapp)
+    check_golden(lights_img, LIGHTS_GOLDEN)
     check_stats(lapp.world.state, ("light_pair_overflow",
                                    "light_tile_overflow"))
 
@@ -1038,12 +1366,16 @@ def main():
         f"{int(a[3].sum())})")
     results["B3"] = time_kernel("B3", a, kw, launches["B3"], err[0])
     torch.cuda.synchronize()
-
+    lights_full_img = frame_image(app)
     del app, rec_full
     torch.cuda.empty_cache()
 
+    # -- the many_lights frame with a row-band shade ----------------------
+    sharded_lights_phases(dev, n, smi, lights_img, lights_full_img)
+
     sprite_phases(dev, n, smi, results)
 
+    log(f"chip_smoke.py ran {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [results[k] for k in KERNELS]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -9,6 +9,7 @@ resolve — runs eagerly on the device given to `build_app`.
 
     python examples/torch_many_cubes.py              # 160k cubes, ms/frame
     python examples/torch_many_cubes.py --profile 10 # + per-span device time
+    python examples/torch_many_cubes.py --shards 4   # mesh pass over 4 shards
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ import torch  # noqa: E402
 from bevy_tpu_torch import App, Query, Res, Update, With  # noqa: E402
 from bevy_tpu_torch.ecs.system import system  # noqa: E402
 from bevy_tpu_torch.math.quat import quat_from_euler  # noqa: E402
+from bevy_tpu_torch.parallel import make_mesh  # noqa: E402
 from bevy_tpu_torch.render import RenderPlugin  # noqa: E402
 from bevy_tpu_torch.render.camera import Camera3d  # noqa: E402
 from bevy_tpu_torch.render.mesh import cuboid  # noqa: E402
@@ -58,6 +60,8 @@ def build_app(n_cubes=160_000, width=1280, height=720, capacity=None,
               tile_h=16, tile_w=128, window_budget=131072,
               eval_tris=8, cull_budget=65536, shards=None,
               device="cuda") -> App:
+    """shards: None, a CUDA card count or a ShardMesh — the mesh pass then
+    rasters over those devices (parallel/raster.py)."""
     # size the world to the scene (+ a little headroom), as the JAX example
     cap = capacity or ((n_cubes + 4103) // 8 * 8)
     app = App(capacity=cap, device=device)
@@ -161,8 +165,11 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", type=int, default=0, metavar="FRAMES",
                     help="also profile this many frames (torch.profiler)")
+    ap.add_argument("--shards", type=int, default=0, metavar="N",
+                    help="N shards, all on the first card (parallel/)")
     args = ap.parse_args()
-    app = build_app()
+    app = build_app(shards=make_mesh(devices=["cuda"] * args.shards)
+                    if args.shards else None)
     step = app.frame_fn()
     state = app.world.state
     for _ in range(3):
@@ -178,7 +185,8 @@ def main():
     torch.cuda.synchronize()
     ms = start.elapsed_time(end) / n
     print(f"many_cubes {app.world.entity_count(Mesh3d)} on "
-          f"{torch.cuda.get_device_name(0)}: {ms:.3f} ms/frame")
+          f"{torch.cuda.get_device_name(0)}, {args.shards or 'no'} shards: "
+          f"{ms:.3f} ms/frame")
     if args.profile:
         profile(step, state, args.profile)
 

@@ -11,6 +11,7 @@ deferred shade (kernel B3) — runs eagerly on the device given to
 
     python examples/torch_many_lights.py              # 100k lights, ms/frame
     python examples/torch_many_lights.py --profile 10 # + per-span device time
+    python examples/torch_many_lights.py --shards 4   # shade in 4 row bands
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from bevy_tpu_torch import App  # noqa: E402
+from bevy_tpu_torch.parallel import make_mesh  # noqa: E402
 from bevy_tpu_torch.render import RenderPlugin  # noqa: E402
 from bevy_tpu_torch.render.camera import Camera3d  # noqa: E402
 from bevy_tpu_torch.render.deferred import (  # noqa: E402
@@ -43,7 +45,9 @@ from bevy_tpu_torch.transform import (  # noqa: E402
 def build_app(n_lights=100_000, n_cubes=1024, width=1280, height=720,
               capacity=None, backend="auto", max_lights_per_tile=512,
               light_range=6.0, camera=(0.0, 50.0, 90.0),
-              pairs_per_light=3, device="cuda") -> App:
+              pairs_per_light=3, shards=None, device="cuda") -> App:
+    """shards: None, a CUDA card count or a ShardMesh — the deferred shade
+    then runs in row bands over those devices."""
     # capacity sized to the scene, as the JAX example (the binning pair
     # arrays and every pool-wide op scale with it)
     cap = capacity or ((n_lights + n_cubes + 1031) // 8 * 8)
@@ -54,7 +58,8 @@ def build_app(n_lights=100_000, n_cubes=1024, width=1280, height=720,
                     RenderPlugin(width=width, height=height), plugin,
                     DeferredLightingPlugin(
                         pairs_per_light=pairs_per_light,
-                        max_lights_per_tile=max_lights_per_tile))
+                        max_lights_per_tile=max_lights_per_tile,
+                        shards=shards))
     app.insert_resource(AmbientLight(brightness=0.02))
 
     app.world.spawn(Camera3d(), *transform_bundle(
@@ -109,8 +114,11 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", type=int, default=0, metavar="FRAMES",
                     help="also profile this many frames (torch.profiler)")
+    ap.add_argument("--shards", type=int, default=0, metavar="N",
+                    help="N shards, all on the first card (parallel/)")
     args = ap.parse_args()
-    app = build_app()
+    app = build_app(shards=make_mesh(devices=["cuda"] * args.shards)
+                    if args.shards else None)
     step = app.frame_fn()
     state = app.world.state
     for _ in range(3):
@@ -127,7 +135,8 @@ def main():
     ms = start.elapsed_time(end) / n
     stats = {k: int(v) for k, v in state["res"]["render_stats"].items()}
     print(f"many_lights {app.world.entity_count(PointLight)} on "
-          f"{torch.cuda.get_device_name(0)}: {ms:.3f} ms/frame; "
+          f"{torch.cuda.get_device_name(0)}, {args.shards or 'no'} shade "
+          f"bands: {ms:.3f} ms/frame; "
           f"render_stats after {n + 3} frames {stats}")
     if args.profile:
         profile(step, state, args.profile)

@@ -132,14 +132,15 @@ def test_no_lights_leaves_ambient_only():
 
 
 def test_deferred_plugin_refuses_unported_features():
-    """Specular tint (A4b) and anisotropy (A5) in the plugin, and sharded
-    shading (A10), raise instead of rendering something else."""
+    """Specular tint (A4b) and anisotropy (A5) in the plugin raise instead
+    of rendering something else; sharded shading (ported) over more CUDA
+    cards than exist raises instead of falling back to fewer or the CPU."""
     import torch_many_lights
     from bevy_tpu_torch.render.deferred import DeferredLightingPlugin
     from bevy_tpu_torch.render.mesh3d import MeshMaterial
 
-    with pytest.raises(NotImplementedError, match="A10"):
-        DeferredLightingPlugin(shards=2)
+    with pytest.raises(ValueError, match="devices"):
+        DeferredLightingPlugin(shards=torch.cuda.device_count() + 1)
     for values, item in (({"specular_tint": (1.0, 0.5, 0.5)}, "A4b"),
                          ({"anisotropy_strength": 0.5}, "A5")):
         app = torch_many_lights.build_app(device="cpu", n_lights=4,

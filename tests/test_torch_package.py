@@ -137,6 +137,65 @@ def test_kernels_match_plain_on_card():
                                    win_h=16, ntri=1, nedge=3)
 
 
+def _composite_case(device="cpu"):
+    """B6's scene (chip_smoke.composite_scene: packed windows that overlap
+    at unaligned rows, tie with each other and with the incoming depth, and
+    run past the frame's right and bottom edges, with an invalid tail), and
+    the winners and depths of the TPU kernel's order, window after window
+    with a strict `>` (a numpy loop). Returns the inputs on `device`, the
+    keywords and the expected (depth, winner)."""
+    sys.path.insert(0, str(ROOT))
+    from chip_smoke import COMPOSITE_KW, composite_scene
+    t = composite_scene(device)
+    depth, winner, windows, owner, meta, wvalid = (x.cpu().numpy()
+                                                   for x in t)
+    win_h, cs = COMPOSITE_KW["win_h"], COMPOSITE_KW["cs"]
+    H, W = depth.shape
+    nb = windows.shape[0]
+    col, y0 = meta // 2048, meta % 2048
+    dep, win = depth.copy(), winner.copy()
+    for w in range(nb):
+        if not wvalid[w]:
+            continue
+        for r in range(win_h):
+            for lane in range(128):
+                y, x = y0[w] + r, col[w] * 128 + lane
+                dz = windows[w, r, lane]
+                if y < H and x < W and dz > dep[y, x]:
+                    dep[y, x] = dz
+                    win[y, x] = np.float32(owner[w] * cs +
+                                           (dz.view(np.int32) & 15))
+    return t, COMPOSITE_KW, (dep, win)
+
+
+def test_composite_plain_keeps_the_sequential_order():
+    splat.composite_windows.launches = 0
+    t, kw, (dep, win) = _composite_case()
+    dp, wp = splat.composite_windows(*t, **kw)
+    assert np.array_equal(dp.numpy().view(np.int32), dep.view(np.int32))
+    assert np.array_equal(wp.numpy(), win)
+    assert (win >= 0).mean() > 0.2
+    assert splat.composite_windows.launches == 0
+    assert _cuda._Loaded.lib is None
+
+
+@pytest.mark.cuda
+def test_b6_matches_plain_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (runs in chip_smoke.py's environment)")
+    t, kw, (dep, win) = _composite_case("cuda")
+    n0 = splat.composite_windows.launches
+    dk, wk = splat.composite_windows(*t, **kw)
+    dp, wp = splat._composite_plain(*t, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(dk.view(torch.int32), dp.view(torch.int32))
+    assert torch.equal(wk.view(torch.int32), wp.view(torch.int32))
+    assert np.array_equal(wk.cpu().numpy(), win)
+    assert splat.composite_windows.launches == n0 + 1
+    with pytest.raises(ValueError):
+        splat.composite_windows(*t[:3], t[3].long(), *t[4:], **kw)
+
+
 def _shade_case(device, nf=24, nplanes=22, seed=0):
     """A small deferred-shade input (4 bin tiles of 32 x 128, a sky tile,
     up to 20 lights a tile) made on `device` from a seed."""
