@@ -29,7 +29,8 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_build"
 SOURCES = ("splat_raster.cu", "stream_raster.cu", "deferred_shade.cu",
-           "sprite_tiles.cu", "sprite_splat.cu", "window_composite.cu")
+           "sprite_tiles.cu", "sprite_splat.cu", "window_composite.cu",
+           "tri_raster.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -48,6 +49,8 @@ _SIGNATURES = {
                         _I, _P, _P],
     "bt_window_composite": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P,
                             _P, _P, _P],
+    "bt_tri_raster": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                      _I, _P, _P, _P],
 }
 
 

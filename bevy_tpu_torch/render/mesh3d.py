@@ -1,25 +1,46 @@
-"""3D mesh rendering, the opaque flat slice, forward or deferred (port of
+"""3D mesh rendering, opaque, forward or deferred (port of
 bevy_tpu/render/mesh3d.py; ref: bevy_pbr's mesh pipeline + meshlet
 visibility-buffer raster, Lambert directional + ambient, or the G-buffer
 write of bevy's deferred path).
 
-Every mesh group renders as one uniform instanced batch: vertex transform
-by batched matmul, corner extraction by index gather, cluster cull,
-clipless plane setup, window decomposition, then the two raster kernels —
-B1 window splat (ops/raster3d_splat.fused_eval_composite) for small
-clusters, B2 streaming tiles (ops/raster3d_visbuf.raster_visbuf) for giant
-and near-plane ones — into one depth + winner-id buffer, and a shade-once
-flat resolve (forward) or a one-gather G-buffer write (`deferred=True`;
-render/deferred.py shades it).
+Three routes, as in the JAX package, each reaching its own kernels:
 
-Ported: the uniform-group, opaque, single full-frame camera, flat-forward
-and flat-deferred (`flat_def`) branches of `make_mesh_pass`, with the
-instance sphere-frustum cull, the identity `run_phase` selection, two
-window classes and the compacted fallback, and the multi-device branch
-(`Mesh3dPlugin(shards=...)`: flat-forward groups raster sharded over a
-ShardMesh, parallel/raster.py `sharded_instance_raster`, window composite
-B6). Every other feature of the JAX mesh pass raises NotImplementedError
-naming the ROADMAP item that brings it.
+- **The group route** — `Mesh3dPlugin(backend="auto" | "pallas" |
+  "pallas_interpret")`. Every mesh group renders as one uniform instanced
+  batch: vertex transform by batched matmul, corner extraction by index
+  gather, cluster cull, clipless plane setup, window decomposition, then
+  B1 window splat (ops/raster3d_splat.fused_eval_composite) for small
+  clusters and B2 streaming tiles (ops/raster3d_visbuf.raster_visbuf) for
+  giant and near-plane ones, into one depth + winner-id buffer, and a
+  shade-once flat resolve (forward) or a one-gather G-buffer write
+  (`deferred=True`; render/deferred.py shades it). With
+  `Mesh3dPlugin(shards=...)` flat-forward groups raster sharded over a
+  ShardMesh (parallel/raster.py `sharded_instance_raster`, window
+  composite B6).
+- **The general route** — `Mesh3dPlugin(backend="xla")` and
+  `make_mesh_pass(..., plugin=None)` (JAX's general branch, which its
+  "auto" takes for a forward pass everywhere but on a TPU). One mesh:
+  the uniform sub-branch (every instance's vertices by batched matmul);
+  several meshes or no plugin: the expanded sub-branch, per-vertex
+  gathers through the EXPANSION tables (`install_expansion`). Then the
+  near-plane clip (ops/raster3d.clip_near_corners), triangle setup,
+  corner records (ops/raster3d_tris.pack_tri_table), tile binning
+  (`bin_tris`) and B7 (`raster_tris(layout="corners")`): per-pixel
+  perspective-correct Lambert + ambient + emissive. The port keeps no XLA
+  raster: B7 is JAX's own "pallas" raster of this branch. It draws
+  smooth-shaded and mixed-mesh scenes, every row opaque, reading
+  base_color and emissive only; it ignores cull_budget, as JAX's branch
+  does, and refuses `deferred=True` as JAX does.
+- **`raster_batched_legacy`** — the gather-free raster tail for batched
+  uniform geometry: one-hot corner extraction, `_near_clip`, plane
+  records (`pack_tri_planes`) and B8 (`raster_tris(layout="planes" |
+  "planes_gbuf")`), forward or into the G-buffer's first 12 planes, with
+  an optional viewport scissor. No pass calls it; it is an entry for
+  callers with their own batched geometry, as in the JAX package.
+
+Multi-camera rendering and camera viewports are refused on both plugin
+routes (ROADMAP A8). Every other feature of the JAX mesh pass raises
+NotImplementedError naming its route and the ROADMAP item that brings it.
 """
 
 from __future__ import annotations
@@ -35,9 +56,15 @@ from bevy_tpu_torch.ecs.query import Query, Read, Res, ResMut
 from bevy_tpu_torch.ecs.system import system
 from bevy_tpu_torch.math.affine import TRS, trs_to_mat4
 from bevy_tpu_torch.math.quat import quat_rotate_vec3
+from bevy_tpu_torch.ops.raster3d import (
+    clip_near_corners, triangle_setup_corners,
+)
 from bevy_tpu_torch.ops.raster3d_splat import (
     build_quad_rec_rows, build_rec_rows, build_windows, coplanar_quad_pairs,
     fused_eval_composite,
+)
+from bevy_tpu_torch.ops.raster3d_tris import (
+    bin_tris, pack_tri_planes, pack_tri_table, raster_tris,
 )
 from bevy_tpu_torch.ops.raster3d_visbuf import (
     ZREC, bin_clusters, cluster_records, cluster_screen_aabbs,
@@ -123,13 +150,20 @@ class AmbientLight:
     brightness = field((), default=0.08)
 
 
-def _unported(feature, item):
+EXPANSION = "mesh_expansion"
+GROUP_ROUTE = "the group route"
+GENERAL_ROUTE = "the general route"
+
+
+def _unported(feature, item, route=None):
+    where = "" if route is None else f" on {route}"
     return NotImplementedError(
-        f"{feature} is not ported to bevy_tpu_torch yet (ROADMAP {item})")
+        f"{feature} is not ported to bevy_tpu_torch{where} yet "
+        f"(ROADMAP {item})")
 
 
-# MeshMaterial fields the flat paths do not read, with the default a world
-# must keep and the ROADMAP item that brings each
+# MeshMaterial fields the group route's flat records do not read, with the
+# default a world must keep and the ROADMAP item that brings each
 _MATERIAL_GATES = (
     ("specular_transmission", 0.0, "transmission", "A8"),
     ("diffuse_transmission", 0.0, "transmission", "A8"),
@@ -142,38 +176,117 @@ _MATERIAL_GATES = (
 
 
 def _rebuild_expansion(world, plugin):
-    """Host: group mesh instances per mesh (each group renders as one
-    uniform batch; ref position: PrepareMeshes). Runs on structural change
-    only, and refuses worlds the flat-forward slice cannot draw."""
+    """Host, on structural change only (ref position: PrepareMeshes).
+    Both routes refuse several cameras and camera viewports (A8).
+
+    The general route records the uniform sub-branch's tables when every
+    instance shares one mesh, and installs the pool and EXPANSION tables
+    (`install_expansion`), as the JAX package does for its non-Pallas
+    backends. The group route groups mesh instances per mesh (each group
+    renders as one uniform batch) and refuses worlds its flat records
+    cannot draw: transparency, the _MATERIAL_GATES fields, smooth-shaded
+    meshes."""
+    route = plugin.route
     rows = world.query_rows(Mesh3d)
     cam_rows = world.query_rows(Camera3d)
     if len(cam_rows) > 1:
-        raise _unported("multi-camera rendering", "A8")
+        raise _unported("multi-camera rendering", "A8", route)
     if len(cam_rows):
         vmn = world.column(Camera3d, "vp_min").cpu().numpy()[cam_rows]
         vmx = world.column(Camera3d, "vp_max").cpu().numpy()[cam_rows]
         if np.any(vmn != 0.0) or np.any(vmx != 1.0):
-            raise _unported("camera viewports", "A8")
+            raise _unported("camera viewports", "A8", route)
     mesh_ids = world.column(Mesh3d, "mesh").cpu().numpy()[rows]
+    dev = world.device
+    if route == GENERAL_ROUTE:
+        ids = np.unique(mesh_ids)
+        plugin._uniform = _uniform_tables(plugin.pool.meshes[int(ids[0])],
+                                          rows, dev) \
+            if len(ids) == 1 else None
+        install_expansion(world, plugin.pool)
+        return
     col = {name: world.column(MeshMaterial, name).cpu().numpy()[rows]
            for name in ("base_color",) + tuple(g[0] for g in _MATERIAL_GATES)}
     if np.any(col["base_color"][:, 3] < 0.999):
-        raise _unported("the transparent phase (OIT)", "A8")
+        raise _unported("the transparent phase (OIT)", "A8", route)
     for name, default, feature, item in _MATERIAL_GATES:
         if np.any(col[name] != np.asarray(default, np.float32)):
-            raise _unported(feature, item)
-    dev = world.device
+            raise _unported(feature, item, route)
     plugin._groups = []
     for mid in np.unique(mesh_ids):
         m = plugin.pool.meshes[int(mid)]
         nrm = m.normals[m.triangles.astype(np.int64)]
         if not (np.all(nrm[:, 0] == nrm[:, 1]) and
                 np.all(nrm[:, 0] == nrm[:, 2])):
-            raise _unported("smooth-shaded (non-flat) meshes", "A5")
+            raise _unported("smooth-shaded (non-flat) meshes", "A5", route)
         grows = rows[mesh_ids == mid].astype(np.int64)
         plugin._groups.append(dict(
             uniform_batch(m, dev), n=len(grows),
             rows=torch.as_tensor(grows, device=dev)))
+
+
+def install_expansion(world, pool):
+    """Install the general route's device tables into `world`'s resources
+    (the expanded half of the JAX package's `_rebuild_expansion` plus
+    `MeshPool.build`): MeshPool.RESOURCE, the pool slab, and EXPANSION,
+    per live Mesh3d row in row order its vertices (vert_inst: the row,
+    vert_pool: the pool vertex) and triangles (tri_inst: the row,
+    tri_verts: indices into the expanded vertices). A world without a
+    mesh gets one inactive dummy triangle. Call it again after a
+    structural change (Mesh3dPlugin(backend="xla") does, in its prepare
+    hook)."""
+    dev = world.device
+    pool_t = pool.build(dev)
+    rows = world.query_rows(Mesh3d).astype(np.int64)
+    mids = world.column(Mesh3d, "mesh").cpu().numpy()[rows].astype(np.int64)
+    v_cnt = np.asarray([m.num_vertices for m in pool.meshes])
+    t_cnt = np.asarray([m.num_triangles for m in pool.meshes])
+    if len(rows):
+        vc, tc = v_cnt[mids], t_cnt[mids]
+        vbase = np.cumsum(vc) - vc          # each instance's first vertex
+        tbase = np.cumsum(tc) - tc
+        v_off = np.cumsum(v_cnt) - v_cnt    # each mesh's slab offset
+        t_off = np.cumsum(t_cnt) - t_cnt
+        local_v = np.arange(vc.sum()) - np.repeat(vbase, vc)
+        local_t = np.arange(tc.sum()) - np.repeat(tbase, tc)
+        mesh_tris = np.concatenate([m.triangles for m in pool.meshes])
+        exp = {
+            "vert_inst": np.repeat(rows, vc),
+            "vert_pool": local_v + np.repeat(v_off[mids], vc),
+            "tri_inst": np.repeat(rows, tc),
+            "tri_verts": mesh_tris[local_t + np.repeat(t_off[mids], tc)]
+            + np.repeat(vbase, tc)[:, None],
+        }
+    else:
+        exp = {"vert_inst": np.zeros(3), "vert_pool": np.zeros(3),
+               "tri_inst": np.full(1, world.capacity - 1),
+               "tri_verts": np.zeros((1, 3))}
+    world.state["res"][MeshPool.RESOURCE] = pool_t
+    world.state["res"][EXPANSION] = {
+        k: torch.as_tensor(v.astype(np.int32), device=dev)
+        for k, v in exp.items()}
+    world.structure_version += 1
+
+
+def _uniform_tables(mesh, rows, device):
+    """The general route's uniform sub-branch constants, on the device
+    once per prepare: homogeneous positions (VC, 4), normals (VC, 3), and
+    per triangle of every instance (instance-major) its expanded vertex
+    indices and its world row."""
+    vc, tc = mesh.num_vertices, mesh.num_triangles
+    ni = len(rows)
+    tri_verts = (mesh.triangles.astype(np.int64)[None] +
+                 (np.arange(ni) * vc)[:, None, None]).reshape(ni * tc, 3)
+    ones = np.ones((vc, 1), np.float32)
+    return {
+        "rows": torch.as_tensor(rows.astype(np.int64), device=device),
+        "ph": torch.as_tensor(np.concatenate([mesh.positions, ones], 1),
+                              device=device),
+        "normals": torch.as_tensor(mesh.normals, device=device),
+        "tri_verts": torch.as_tensor(tri_verts, device=device),
+        "tri_rows": torch.as_tensor(np.repeat(rows.astype(np.int64), tc),
+                                    device=device),
+    }
 
 
 def uniform_batch(mesh, device, cs=12):
@@ -316,7 +429,8 @@ def _setup(clip, nrm, batch, inst_ok, mat_inst, light_vec, width, height,
     n_cl = ni * cc_num
     k = min(visible_budget, n_cl)
     if k < n_cl:
-        raise _unported("visible_budget below the cluster count", "A8")
+        raise _unported("visible_budget below the cluster count", "A8",
+                        GROUP_ROUTE)
     # corner extraction: an index gather (bit-equal to the TPU's one-hot
     # matmul, whose every output is one product by 1.0)
     cc = clip[:, tri_idx].reshape(n_cl, cs, 3, 4)
@@ -381,10 +495,273 @@ def _frustum_cull(batch, gt_t, gt_r, gt_s, inst_ok, view, fov, near, aspect,
     return ids[:budget], torch.sum(ins32)
 
 
-def make_mesh_pass(width, height, plugin, tile_h=32, tile_w=128,
-                   max_per_tile=256, win_h=32, window_budget=65536,
-                   eval_tris=None, visible_budget=65536, cull_budget=None,
-                   deferred=False):
+def _camera_view(q, cam, width, height):
+    """The first camera's view and view-projection, and each mesh row's
+    visibility to it (RenderLayers bitmask + LOD distance band)."""
+    ci, has_cam = pick_camera(cam.mask)
+    cam_gt = cam.global_transform
+    view = view_matrix(cam_gt.translation[ci], cam_gt.rotation[ci],
+                       cam_gt.scale[ci])
+    proj = perspective_infinite_reverse(cam.camera3d.fov[ci], width / height,
+                                        cam.camera3d.near[ci])
+    distr = torch.linalg.vector_norm(
+        q.global_transform.translation - cam_gt.translation[ci], dim=-1)
+    visrow = ((q.mesh3d.layers & cam.camera3d.layers[ci]) != 0) & \
+        (distr >= q.mesh3d.lod_near) & (distr < q.mesh3d.lod_far)
+    return ci, has_cam, view, proj @ view, visrow
+
+
+def _raster_tiled(fb, depth, table, valid, aabb, light_vec, scissor, stats,
+                  *, width, height, tile_h, tile_w, pairs_per_tri,
+                  max_per_tile, layout, pair_budget=None):
+    """bin_tris + raster_tris (the port of `raster_tris_pallas`): returns
+    the new (fb, depth) and adds the binning overflows to `stats`.
+    Profiler spans mesh:tri_bin and mesh:tris_B7 or mesh:legacy_B8."""
+    with span("mesh:tri_bin"):
+        pair_tri, starts, counts, st = bin_tris(
+            valid, aabb, height, width, tile_h=tile_h, tile_w=tile_w,
+            pairs_per_tri=pairs_per_tri, max_per_tile=max_per_tile,
+            pair_budget=pair_budget)
+    with span("mesh:tris_B7" if layout == "corners" else "mesh:legacy_B8"):
+        fb, depth = raster_tris(fb, depth, table, pair_tri, starts, counts,
+                                light_vec, scissor, tile_h=tile_h,
+                                tile_w=tile_w, layout=layout)
+    stats.pair_overflow = stats.pair_overflow + st["pair_overflow"]
+    stats.tile_overflow = stats.tile_overflow + st["tile_overflow"]
+    return fb, depth
+
+
+def _near_clip(cc, cn, valid, eps=1e-3):
+    """Near-plane clipping at w = eps (ref: the hardware clipper wgpu
+    relies on). cc (T,3,4) clip-space corners, cn (T,3,3) corner normals.
+    Returns doubled arrays (2T, …): slot i the (possibly clipped)
+    triangle, slot T+i the second triangle of a 1-behind quad split
+    (invalid otherwise). Cyclic rotations keep the winding; the rotation
+    is the reference's one-hot select (products by 1.0 and 0.0)."""
+    behind = cc[..., 3] < eps
+    nb = behind.to(torch.int32).sum(1)
+
+    def rot(arr, k):
+        return torch.roll(arr, -k, dims=1)
+
+    # rotate so the single behind vertex (nb == 1) or the single front
+    # vertex (nb == 2, rotated to slot 2) lands canonically
+    b0, b1 = behind[:, 0], behind[:, 1]
+    k1 = torch.where(b0, 0, torch.where(b1, 1, 2))     # behind-first
+    k2 = torch.where(~b0, 1, torch.where(~b1, 2, 0))   # front-last
+    k = torch.where(nb == 1, k1, torch.where(nb == 2, k2, 0))
+    sel = torch.nn.functional.one_hot(k.long(), 3).to(cc.dtype)
+
+    def select(arr):
+        return (sel[:, 0, None, None] * arr +
+                sel[:, 1, None, None] * rot(arr, 1) +
+                sel[:, 2, None, None] * rot(arr, 2))
+
+    ccr, cnr = select(cc), select(cn)
+    a, b, c = ccr[:, 0], ccr[:, 1], ccr[:, 2]
+    na, nbn, ncn = cnr[:, 0], cnr[:, 1], cnr[:, 2]
+
+    def lerp_to_plane(p, q, np_, nq):
+        d = q[:, 3:4] - p[:, 3:4]
+        t = (eps - p[:, 3:4]) / torch.where(torch.abs(d) > 1e-12, d, 1.0)
+        t = torch.clamp(t, 0.0, 1.0)
+        return p + (q - p) * t, np_ + (nq - np_) * t
+
+    # nb == 1 (A behind): A1 on AB, A2 on AC → (A1,B,C) + (A1,C,A2)
+    a1, na1 = lerp_to_plane(a, b, na, nbn)
+    a2, na2 = lerp_to_plane(a, c, na, ncn)
+    # nb == 2 (A, B behind, C front): A' on AC, B' on BC → (A',B',C)
+    ap, nap = lerp_to_plane(a, c, na, ncn)
+    bp, nbp = lerp_to_plane(b, c, nbn, ncn)
+    is1 = (nb == 1)[:, None, None]
+    is2 = (nb == 2)[:, None, None]
+    slot1_cc = torch.where(is1, torch.stack([a1, b, c], 1),
+                           torch.where(is2, torch.stack([ap, bp, c], 1), ccr))
+    slot1_cn = torch.where(is1, torch.stack([na1, nbn, ncn], 1),
+                           torch.where(is2, torch.stack([nap, nbp, ncn], 1),
+                                       cnr))
+    return (torch.cat([slot1_cc, torch.stack([a1, c, a2], 1)]),
+            torch.cat([slot1_cn, torch.stack([na1, ncn, na2], 1)]),
+            torch.cat([valid & (nb < 3), valid & (nb == 1)]))
+
+
+def raster_batched_legacy(clip, nrm, triangles, inst_ok, col_i, emi_i,
+                          light_vec, target, stats, *, width, height,
+                          tile_h, tile_w, pairs_per_tri, max_per_tile,
+                          interpret, deferred=False, met_i=None, rgh_i=None,
+                          viewport=None):
+    """Gather-free raster tail for batched uniform geometry (kernel B8):
+    clip (Ni, VC, 4) clip-space positions, nrm (Ni, VC, 3) world normals,
+    triangles (TC, 3) static indices, inst_ok (Ni,) bool, per-instance
+    colours (Ni, 4) / emissive (Ni, 3) and, for the G-buffer, metallic /
+    roughness (Ni,) (defaults 0 and 0.5). Corner extraction (an index
+    gather, the reference's one-hot matmul), exact near-plane clipping
+    (quad splits use a second table half), plane setup, then B8:
+    `deferred=False` composes Lambert + ambient + emissive into
+    target.color, `deferred=True` writes G-buffer planes 0:12 of
+    target.gbuffer; target.depth either way. viewport: None or the pixel
+    rect (x0, y0, x1, y1) NDC maps onto, which also scissors the raster.
+    `interpret` is the JAX signature's; the kernel route follows the
+    tensors' device. Overflows add to stats.pair_overflow /
+    tile_overflow."""
+    del interpret
+    dev = clip.device
+    ni, vc = clip.shape[0], clip.shape[1]
+    tri = torch.as_tensor(np.asarray(triangles, np.int64), device=dev)
+    tc = tri.shape[0]
+    t_half = ni * tc
+    with span("mesh:setup_general"):
+        quant = torch.cat([clip.movedim(-1, 1), nrm.movedim(-1, 1)], 1)
+        corners = quant[:, :, tri.reshape(-1)].reshape(ni, 7, tc, 3)
+        cc = corners[:, 0:4].movedim(1, -1).reshape(t_half, 3, 4)
+        cn = corners[:, 4:7].movedim(1, -1).reshape(t_half, 3, 3)
+        valid0 = inst_ok[:, None].expand(ni, tc).reshape(t_half)
+        cc, cn, valid = _near_clip(cc, cn, valid0)
+        inv_w = 1.0 / torch.clamp(cc[..., 3], min=1e-6)
+        scissor = viewport
+        if viewport is None:
+            viewport = (0.0, 0.0, float(width), float(height))
+        vx0, vy0, vx1, vy1 = viewport
+        sx = vx0 + (cc[..., 0] * inv_w * 0.5 + 0.5) * (vx1 - vx0)
+        sy = vy0 + (0.5 - cc[..., 1] * inv_w * 0.5) * (vy1 - vy0)
+        cxy = torch.stack([sx, sy], -1)                 # (2T, 3, 2)
+        ax, ay = cxy[:, 0, 0], cxy[:, 0, 1]
+        bx, by = cxy[:, 1, 0], cxy[:, 1, 1]
+        cx2, cy2 = cxy[:, 2, 0], cxy[:, 2, 1]
+        area2 = (bx - ax) * (cy2 - ay) - (by - ay) * (cx2 - ax)
+        valid = valid & (area2 < -1e-12)
+        aabb = torch.stack([torch.amin(sx, 1), torch.amin(sy, 1),
+                            torch.amax(sx, 1), torch.amax(sy, 1)], 1)
+
+        def per_tri(x, default):     # (Ni, …) → (2T, …), or the default
+            if x is None:
+                return torch.full((2 * t_half,), default, device=dev)
+            x = x[:, None].expand((ni, tc) + x.shape[1:])
+            return x.reshape((t_half,) + x.shape[2:]).repeat(
+                (2,) + (1,) * (x.dim() - 2))
+
+        table = pack_tri_planes(cxy, cc[..., 2] * inv_w, inv_w, area2, valid,
+                                cn, per_tri(col_i, None),
+                                per_tri(emi_i, None), per_tri(met_i, 0.0),
+                                per_tri(rgh_i, 0.5))
+    # the pair budget follows the realistic pair rate (about half the
+    # triangles are back-facing and most touch one tile), not the worst
+    # case; overflow is counted in render_stats, as in the reference
+    hp_t = (height + tile_h - 1) // tile_h
+    wp_t = (width + tile_w - 1) // tile_w
+    budget = int(t_half * min(pairs_per_tri, 2) * 0.4) + hp_t * wp_t + 8192
+    fb, target.depth = _raster_tiled(
+        target.gbuffer if deferred else target.color, target.depth, table,
+        valid, aabb, light_vec, scissor, stats, width=width, height=height,
+        tile_h=tile_h, tile_w=tile_w, pairs_per_tri=pairs_per_tri,
+        max_per_tile=max_per_tile,
+        layout="planes_gbuf" if deferred else "planes", pair_budget=budget)
+    if deferred:
+        target.gbuffer = fb
+    else:
+        target.color = fb
+
+
+ROUTE_OF_BACKEND = {"auto": GROUP_ROUTE, "pallas": GROUP_ROUTE,
+                    "pallas_interpret": GROUP_ROUTE, "xla": GENERAL_ROUTE}
+
+
+def make_mesh_pass(width, height, plugin=None, tile_h=32, tile_w=128,
+                   pairs_per_tri=2, max_per_tile=256, backend="auto",
+                   win_h=32, window_budget=65536, eval_tris=None,
+                   visible_budget=65536, cull_budget=None, deferred=False):
+    """The mesh pass system. plugin=None, or a plugin with backend="xla",
+    builds the general route's pass (B7); any other backend the group
+    route's (B1/B2, or B6 when sharded). See the module docstring."""
+    if backend not in ROUTE_OF_BACKEND:
+        raise ValueError(f"make_mesh_pass: unknown backend {backend!r}")
+    if plugin is None or ROUTE_OF_BACKEND[backend] == GENERAL_ROUTE:
+        if deferred:
+            raise RuntimeError("deferred lighting requires the pallas "
+                               "backend")
+        return _general_pass(width, height, plugin, tile_h=tile_h,
+                             tile_w=tile_w, pairs_per_tri=pairs_per_tri,
+                             max_per_tile=max_per_tile)
+    return _group_pass(width, height, plugin, tile_h=tile_h, tile_w=tile_w,
+                       max_per_tile=max_per_tile, win_h=win_h,
+                       window_budget=window_budget, eval_tris=eval_tris,
+                       visible_budget=visible_budget,
+                       cull_budget=cull_budget, deferred=deferred)
+
+
+def _general_pass(width, height, plugin, *, tile_h, tile_w, pairs_per_tri,
+                  max_per_tile):
+    """JAX's general mesh branch (mesh3d.py:1465-1569) on B7. Profiler
+    spans mesh:setup_general, mesh:tri_bin, mesh:tris_B7."""
+    from bevy_tpu_torch.transform import GlobalTransform
+
+    @system(name="mesh_pass")
+    def mesh_pass(q=Query(Read(Mesh3d), Read(MeshMaterial),
+                          Read(GlobalTransform)),
+                  cam=Query(Read(Camera3d), Read(GlobalTransform)),
+                  light=Query(Read(DirectionalLight), Read(GlobalTransform)),
+                  amb=Res(AmbientLight),
+                  pool=Res(MeshPool.RESOURCE),
+                  exp=Res(EXPANSION),
+                  target=ResMut(RenderTarget.RESOURCE),
+                  stats=ResMut("render_stats")):
+        _, has_cam, _, vp, visrow = _camera_view(q, cam, width, height)
+        gt = q.global_transform
+        uni = plugin._uniform if plugin is not None else None
+        with span("mesh:setup_general"):
+            if uni is not None:
+                # uniform sub-branch: all instances share one mesh, so the
+                # vertex stage is (Ni,4,4) @ (VC,4) batched matmuls
+                rows = uni["rows"]
+                mats = trs_to_mat4(TRS(translation=gt.translation[rows],
+                                       rotation=gt.rotation[rows],
+                                       scale=gt.scale[rows]))
+                mvp = torch.einsum("ij,njk->nik", vp, mats)
+                clip = torch.einsum("nij,vj->nvi", mvp, uni["ph"]) \
+                    .reshape(-1, 4)
+                nrm = quat_rotate_vec3(gt.rotation[rows][:, None, :],
+                                       uni["normals"][None]).reshape(-1, 3)
+                tri_verts, tri_rows = uni["tri_verts"], uni["tri_rows"]
+            else:
+                # expanded sub-branch: per-vertex gathers (mixed meshes)
+                mats = trs_to_mat4(TRS(translation=gt.translation,
+                                       rotation=gt.rotation,
+                                       scale=gt.scale))
+                mvp = torch.einsum("ij,njk->nik", vp, mats)
+                vi = exp.vert_inst.long()
+                vpool = exp.vert_pool.long()
+                pos = pool.positions[vpool]
+                ph = torch.cat([pos, torch.ones_like(pos[:, :1])], 1)
+                clip = torch.einsum("vij,vj->vi", mvp[vi], ph)
+                # world-space normals (uniform-scale assumption, as in the
+                # reference)
+                nrm = quat_rotate_vec3(gt.rotation[vi], pool.normals[vpool])
+                tri_verts, tri_rows = exp.tri_verts.long(), \
+                    exp.tri_inst.long()
+            tri_active = q.mask[tri_rows] & visrow[tri_rows] & has_cam
+            # near-plane clip before setup (the reference clipper's role)
+            clip_c, corner_n, tri_active, src = clip_near_corners(
+                clip[tri_verts], nrm[tri_verts], tri_active)
+            src_rows = tri_rows[src.long()]
+            setup = triangle_setup_corners(clip_c, tri_active, width,
+                                           height)
+            lv = directional_light_vec(light, amb)
+            table = pack_tri_table(setup, corner_n,
+                                   q.mesh_material.base_color[src_rows],
+                                   q.mesh_material.emissive[src_rows])
+        target.color, target.depth = _raster_tiled(
+            target.color, target.depth, table, setup["valid"], setup["aabb"],
+            lv, None, stats, width=width, height=height, tile_h=tile_h,
+            tile_w=tile_w, pairs_per_tri=pairs_per_tri,
+            max_per_tile=max_per_tile, layout="corners")
+
+    return mesh_pass
+
+
+def _group_pass(width, height, plugin, *, tile_h, tile_w, max_per_tile,
+                win_h, window_budget, eval_tris, visible_budget, cull_budget,
+                deferred):
+    """The group route's pass (uniform batches on B1/B2, B6 sharded)."""
     from bevy_tpu_torch.transform import GlobalTransform
 
     @system(name="mesh_pass")
@@ -395,19 +772,8 @@ def make_mesh_pass(width, height, plugin, tile_h=32, tile_w=128,
                   amb=Res(AmbientLight),
                   target=ResMut(RenderTarget.RESOURCE),
                   stats=ResMut("render_stats")):
-        ci, has_cam = pick_camera(cam.mask)
-        cam_gt = cam.global_transform
+        ci, has_cam, view, vp, visrow = _camera_view(q, cam, width, height)
         aspect = width / height
-        view = view_matrix(cam_gt.translation[ci], cam_gt.rotation[ci],
-                           cam_gt.scale[ci])
-        proj = perspective_infinite_reverse(cam.camera3d.fov[ci], aspect,
-                                            cam.camera3d.near[ci])
-        vp = proj @ view
-        # per-row visibility: RenderLayers bitmask + LOD distance band
-        distr = torch.linalg.vector_norm(
-            q.global_transform.translation - cam_gt.translation[ci], dim=-1)
-        visrow = ((q.mesh3d.layers & cam.camera3d.layers[ci]) != 0) & \
-            (distr >= q.mesh3d.lod_near) & (distr < q.mesh3d.lod_far)
         lv = directional_light_vec(light, amb)
         mm = q.mesh_material
         for grp in plugin._groups:
@@ -474,11 +840,18 @@ class Mesh3dPlugin(Plugin):
     """ref: MeshPlugin + PbrPlugin's pipeline half. Owns the MeshPool;
     add meshes with `add_mesh` before the first frame.
 
+    backend: "xla" takes the general route (B7); "auto", "pallas" and
+    "pallas_interpret" the group route (B1/B2), whose kernels follow the
+    tensors' device either way (see the module docstring). pairs_per_tri
+    sizes the general route's pair budget (T * pairs_per_tri + tiles);
+    the group route does not read it.
+
     shards: None, a device count (the first that many CUDA cards) or a
     ShardMesh: flat-forward groups then raster over those devices
     (parallel/raster.py). Clusters too large for windows are then counted
     into pair_overflow and fallback_clusters, not drawn, as in the JAX
-    package. A deferred pass stays on one device."""
+    package. A deferred pass stays on one device; the general route
+    takes no shards."""
 
     def __init__(self, pool: MeshPool = None, tile_h=32, tile_w=128,
                  pairs_per_tri=2, max_per_tile=256, backend="auto",
@@ -486,8 +859,10 @@ class Mesh3dPlugin(Plugin):
                  eval_tris=None, atlas=None, visible_budget=65536,
                  occlusion_cull=False, material_fn=None, cull_budget=None,
                  shards=None, bvh_cull=False, motion_vectors=False):
+        if backend not in ROUTE_OF_BACKEND:
+            raise ValueError(f"Mesh3dPlugin: unknown backend {backend!r}")
+        self.route = ROUTE_OF_BACKEND[backend]
         for on, feature, item in (
-                (backend == "xla", "the XLA reference raster backend", "A3"),
                 (atlas is not None, "textured materials", "A5"),
                 (occlusion_cull, "two-phase occlusion culling", "A8"),
                 (material_fn is not None, "custom materials", "A8"),
@@ -495,16 +870,20 @@ class Mesh3dPlugin(Plugin):
                 (motion_vectors, "motion vectors", "A8")):
             if on:
                 raise _unported(feature, item)
-        # pairs_per_tri and the pallas/interpret backends have no effect:
-        # the kernel route follows the device of the tensors. deferred=True
-        # writes the G-buffer that DeferredLightingPlugin creates and shades
+        if shards is not None and self.route == GENERAL_ROUTE:
+            raise ValueError("Mesh3dPlugin: shards need the group route "
+                             "(backend 'auto' or 'pallas'), not 'xla'")
+        # deferred=True writes the G-buffer that DeferredLightingPlugin
+        # creates and shades (the group route only, as in JAX)
         self.pool = pool or MeshPool()
         self._groups = None
+        self._uniform = None
         self.shard_mesh = as_mesh(shards)
         self.cfg = dict(tile_h=tile_h, tile_w=tile_w,
-                        max_per_tile=max_per_tile, win_h=win_h,
-                        window_budget=window_budget, eval_tris=eval_tris,
-                        visible_budget=visible_budget,
+                        pairs_per_tri=pairs_per_tri,
+                        max_per_tile=max_per_tile, backend=backend,
+                        win_h=win_h, window_budget=window_budget,
+                        eval_tris=eval_tris, visible_budget=visible_budget,
                         cull_budget=cull_budget, deferred=deferred)
 
     def add_mesh(self, mesh, lods: int = 1) -> int:

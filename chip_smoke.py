@@ -66,7 +66,23 @@ source, all started together), then:
 19. runs the full-size many_lights frame with a 4-band shade, times 20
    frames, checks B3 was launched 4 times a frame, holds each band's B3
    call of one frame against plain (rtol/atol 1e-5), prints the overflows,
-   and checks the image equals the unsharded frame's.
+   and checks the image equals the unsharded frame's;
+20. holds the per-tile triangle raster against its plain version, bit for
+   bit, in all six instantiations (B7 corners, B8 planes and planes_gbuf,
+   scissor off and on) on the scene of tests/test_torch_tris.py;
+21. renders the many_cubes twin through the general route
+   (`backend="xla"`, 300 cubes, 320x180, 3 frames) against
+   tests/goldens/cubes_f3.png, B7 against plain on every call;
+22. renders the 3d_shapes twin (320x180, 1 frame) against
+   tests/goldens/shapes_f1.png, B7 against plain;
+23. runs many_cubes 160k through the general route at 1280x720 (20 frames
+   timed, B7 once a frame, overflows printed), times B7 against its plain
+   version at that frame's shapes, and runs 3d_shapes at 1280x720 (20
+   frames timed);
+24. calls raster_batched_legacy forward and deferred (a 19-plane G-buffer)
+   on the 160k cubes' clip-space corners and normals at 1280x720
+   (tile_h=16, max_per_tile=3072): B8 twice, each bit-equal to plain, the
+   calls and B8 timed beside its bound, overflows printed.
 
 The shards of phases 15-19 all sit on the one card (a ShardMesh may repeat
 a device): their work runs one shard after another.
@@ -112,8 +128,14 @@ KERNELS = {
            "bevy_tpu/ops/raster2d_splat.py:64"),
     "B6": ("composite_windows", "bevy_tpu_torch/csrc/window_composite.cu",
            "bevy_tpu/ops/raster3d_splat.py:511"),
+    "B7": ("raster_tris", "bevy_tpu_torch/csrc/tri_raster.cu",
+           "bevy_tpu/ops/raster3d_pallas.py:239"),
+    "B8": ("raster_tris", "bevy_tpu_torch/csrc/tri_raster.cu",
+           "bevy_tpu/ops/raster3d_pallas.py:106"),
 }
 BREAKOUT_GOLDEN = ROOT / "tests" / "goldens" / "breakout_f25.png"
+CUBES_XLA_GOLDEN = ROOT / "tests" / "goldens" / "cubes_f3.png"
+SHAPES_GOLDEN = ROOT / "tests" / "goldens" / "shapes_f1.png"
 BREAKOUT_GOLDEN_KW = dict(width=320, height=200, camera_scale=3.2,
                           ball_velocity=(120.0, 380.0))
 FLOCK_FRAMES = 150         # bevymark frames that build the flock
@@ -175,7 +197,8 @@ def read_png_rgba8(path):
 
 class Recorder:
     """Wraps the kernel entry points where the port's modules call them
-    (mesh3d: B1, B2; deferred and parallel/raster: B3; sprite: B4, B5;
+    (mesh3d: B1, B2, and B7 / B8 — one wrapper, `raster_tris`, told apart
+    by its layout; deferred and parallel/raster: B3; sprite: B4, B5;
     parallel/raster: B6) to keep the arguments of every call (for the
     kernel-vs-plain comparisons)."""
 
@@ -184,61 +207,85 @@ class Recorder:
         from bevy_tpu_torch.render import deferred, mesh3d, sprite
         self.sites = {"B1": (mesh3d,), "B2": (mesh3d,),
                       "B3": (deferred, par_raster), "B4": (sprite,),
-                      "B5": (sprite,), "B6": (par_raster,)}
+                      "B5": (sprite,), "B6": (par_raster,),
+                      "B7": (mesh3d,), "B8": (mesh3d,)}
         self.calls = {kid: [] for kid in self.sites}
-        self.orig = {kid: kernel_fn(kid) for kid in self.sites}
+        self.orig = {}
+        for kid, mods in self.sites.items():
+            for mod in mods:
+                self.orig[(mod, KERNELS[kid][0])] = kernel_fn(kid)
 
     def __enter__(self):
-        for kid, fn in self.orig.items():
-            def rec(*a, _k=kid, _f=fn, **kw):
-                self.calls[_k].append((a, kw))
+        for (mod, name), fn in self.orig.items():
+            def rec(*a, _f=fn, **kw):
+                self.calls[kernel_id(_f, kw)].append((a, kw))
                 return _f(*a, **kw)
-            for mod in self.sites[kid]:
-                setattr(mod, KERNELS[kid][0], rec)
+            setattr(mod, name, rec)
         return self
 
     def __exit__(self, *exc):
-        for kid, fn in self.orig.items():
-            for mod in self.sites[kid]:
-                setattr(mod, KERNELS[kid][0], fn)
+        for (mod, name), fn in self.orig.items():
+            setattr(mod, name, fn)
+
+
+def kernel_id(fn, kw):
+    """The kernel id of a call to wrapper `fn` with keywords `kw`."""
+    from bevy_tpu_torch.ops import raster3d_tris
+    if fn is raster3d_tris.raster_tris:
+        return raster3d_tris.KERNEL_OF[kw.get("layout", "corners")]
+    return next(k for k in KERNELS if kernel_fn(k) is fn)
 
 
 def plain_fn(kid):
     from bevy_tpu_torch.ops import (
-        raster2d, raster2d_splat, raster3d_splat, raster3d_visbuf, shade)
+        raster2d, raster2d_splat, raster3d_splat, raster3d_tris,
+        raster3d_visbuf, shade)
     return {"B1": raster3d_splat._fused_plain,
             "B2": raster3d_visbuf._raster_visbuf_plain,
             "B3": shade._deferred_shade_plain,
             "B4": raster2d._sprite_tiles_plain,
             "B5": raster2d_splat._sprite_splat_plain,
-            "B6": raster3d_splat._composite_plain}[kid]
+            "B6": raster3d_splat._composite_plain,
+            "B7": raster3d_tris._raster_tris_plain,
+            "B8": raster3d_tris._raster_tris_plain}[kid]
 
 
 def kernel_fn(kid):
     from bevy_tpu_torch.ops import (
-        raster2d, raster2d_splat, raster3d_splat, raster3d_visbuf, shade)
+        raster2d, raster2d_splat, raster3d_splat, raster3d_tris,
+        raster3d_visbuf, shade)
     return {"B1": raster3d_splat.fused_eval_composite,
             "B2": raster3d_visbuf.raster_visbuf,
             "B3": shade.deferred_shade,
             "B4": raster2d.sprite_tiles,
             "B5": raster2d_splat.sprite_splat,
-            "B6": raster3d_splat.composite_windows}[kid]
+            "B6": raster3d_splat.composite_windows,
+            "B7": raster3d_tris.raster_tris,
+            "B8": raster3d_tris.raster_tris}[kid]
 
 
 def reset_launches():
+    tris = kernel_fn("B7").kernel_launches
     for kid in KERNELS:
-        kernel_fn(kid).launches = 0
+        if kid in tris:
+            tris[kid] = 0
+        else:
+            kernel_fn(kid).launches = 0
 
 
 def read_launches():
-    return {kid: kernel_fn(kid).launches for kid in KERNELS}
+    """Launches by kernel id (raster_tris counts B7 and B8 apart)."""
+    tris = kernel_fn("B7").kernel_launches
+    return {kid: tris[kid] if kid in tris else kernel_fn(kid).launches
+            for kid in KERNELS}
 
 
 def compare(kid, a, kw):
     """Kernel vs plain on one recorded call. B1/B2/B6: asserts bit equality
-    of depth and winner; B3: asserts rtol/atol SHADE_TOL; B4/B5: asserts
-    bit equality of the framebuffer. Returns the max abs error (and, for
-    B3, the max relative error)."""
+    of depth and winner; B7/B8: of the framebuffer (or G-buffer) and
+    depth; B3: asserts rtol/atol SHADE_TOL; B4/B5: asserts bit equality of
+    the framebuffer. Returns the max abs error (and, for B3, the max
+    relative error)."""
     if kid in ("B4", "B5"):
         ck = kernel_fn(kid)(*a, **kw)
         cp = plain_fn(kid)(*a, **kw)
@@ -266,8 +313,9 @@ def compare(kid, a, kw):
     if not same:
         nd = int((dk.view(torch.int32) != dp.view(torch.int32)).sum())
         nw = int((wk.view(torch.int32) != wp.view(torch.int32)).sum())
-        raise AssertionError(f"{kid} kernel != plain: {nd} depth and {nw} "
-                             f"winner pixels differ (max abs err {err})")
+        raise AssertionError(f"{kid} kernel != plain: {nd} and {nw} values "
+                             f"of the two outputs differ (max abs err "
+                             f"{err})")
     return err
 
 
@@ -594,8 +642,121 @@ def library_b6(a, kw):
     return lambda: key.scatter_reduce_(0, idx, keys, "amax")
 
 
+# B7 / B8 operation counts, FP32, of the function (compare, select, clamp,
+# rsqrt and division count 1; a negation that folds into its user counts
+# 0):
+# - per pixel: its centre (2) and, with the scissor, its test (4);
+# - per (tile, listed triangle), corners only: the three edge vectors
+#   (cx-bx, cy-by, ...: 6 sub), once a triangle as the reference computes
+#   them (csrc/tri_raster.cu stages them with the records);
+# - per (pixel, listed triangle): the edge tests (corners: 3 x (2 sub,
+#   2 mul, 1 sub) + 3 compares = 18; planes: 3 x (2 mul, 2 add, compare)
+#   = 15);
+# - per such pair inside the edges: the depth (corners: 3 mul for the
+#   barycentrics + 3 mul, 2 add + compare = 9; planes: 2 mul, 2 add +
+#   compare = 5);
+# - per covered pixel (one that some triangle took), once: the winner's
+#   shade (corners 50, planes 46: 1/w and its clamp, three normals and
+#   their divisions, the length and its rsqrt, Lambert, three colour
+#   channels; planes_gbuf 30: the normal and its normalisation). The
+#   kernel shades every pair that passes the depth test, the plain version
+#   only the winner: the same bits.
+# Walking every listed pair is the reference's algorithm: a pixel that
+# visited only the triangles covering it would skip most of the walk
+# (work_tris counts both).
+TRI_OPS = dict(pixel=2, scissor=4, edges_corners=6, edges_planes=0,
+               walk_corners=18, walk_planes=15, inside_corners=9,
+               inside_planes=5, shade_corners=50, shade_planes=46,
+               shade_planes_gbuf=30)
+
+
+def work_tris(a, kw):
+    """([walked, inside, passing, covered], live pixels) of one B7/B8 call:
+    (pixel, triangle) pairs walked, inside the edges and passing the depth
+    test, and pixels some triangle took. Each in-frame pixel (inside the
+    scissor, when one is given) walks its tile's list in order, as the
+    kernel does (the plain version's inside and depth tests, with
+    counters)."""
+    fb, depth, table, pair_tri, starts, counts, light = a[:7]
+    scissor = a[7] if len(a) > 7 else kw.get("scissor")
+    layout = kw.get("layout", "corners")
+    th, tw = kw.get("tile_h", 32), kw.get("tile_w", 128)
+    H, W = depth.shape
+    nty, ntx = (H + th - 1) // th, (W + tw - 1) // tw
+    dev = depth.device
+    ti = torch.arange(nty * ntx, device=dev)
+    xi = torch.arange(tw, device=dev)[None, None, :] + \
+        ((ti % ntx) * tw)[:, None, None]
+    yi = torch.arange(th, device=dev)[None, :, None] + \
+        ((ti // ntx) * th)[:, None, None]
+    px, py = xi.float() + 0.5, yi.float() + 0.5
+    live = (xi < W) & (yi < H)
+    if scissor is not None:
+        x0, y0, x1, y1 = (float(v) for v in scissor)
+        live = live & (px >= x0) & (py >= y0) & (px < x1) & (py < y1)
+    dep = torch.nn.functional.pad(depth, (0, ntx * tw - W, 0, nty * th - H)) \
+        .reshape(nty, th, ntx, tw).permute(0, 2, 1, 3).reshape(-1, th, tw)
+    n = [0, 0, 0]
+    covered = torch.zeros_like(live)
+    for s_ in range(int(counts.max())):
+        on = live & (s_ < counts)[:, None, None]
+        slot = torch.clamp(starts + s_, max=pair_tri.shape[0] - 1).long()
+        d = table[pair_tri[slot].long()][:, :, None, None].unbind(1)
+        if layout == "corners":
+            e = [(d[4] - d[2]) * (py - d[3]) - (d[5] - d[3]) * (px - d[2]),
+                 (d[0] - d[4]) * (py - d[5]) - (d[1] - d[5]) * (px - d[4]),
+                 (d[2] - d[0]) * (py - d[1]) - (d[3] - d[1]) * (px - d[0])]
+            inside = (e[0] <= 0) & (e[1] <= 0) & (e[2] <= 0)
+            z = e[0] * d[12] * d[6] + e[1] * d[12] * d[7] + \
+                e[2] * d[12] * d[8]
+        else:
+            inside = (d[0] * px + d[1] * py + d[2] <= 0) & \
+                (d[3] * px + d[4] * py + d[5] <= 0) & \
+                (d[6] * px + d[7] * py + d[8] <= 0)
+            z = d[9] * px + d[10] * py + d[11]
+        hit = on & inside
+        passing = hit & (z > dep)
+        dep = torch.where(passing, z, dep)
+        n[0] += int(on.sum())
+        n[1] += int(hit.sum())
+        n[2] += int(passing.sum())
+        covered |= passing
+    return n + [int(covered.sum())], int(live.sum())
+
+
+def bound_tris(a, kw):
+    """B7 / B8: the framebuffer (or every G-buffer plane) and depth read
+    and written once, each listed triangle's record fields once (29 or 33
+    floats), each listed pair index, the tile runs and the light vector;
+    operations TRI_OPS over the listed (tile, triangle) pairs and
+    work_tris's counts."""
+    fb, depth, table, pair_tri, starts, counts = a[:6]
+    layout = kw.get("layout", "corners")
+    scissor = a[7] if len(a) > 7 else kw.get("scissor")
+    (walked, inside, passing, covered), npx = work_tris(a, kw)
+    listed = torch.zeros(pair_tri.shape[0], dtype=torch.bool,
+                         device=depth.device)
+    for st_, ct in zip(starts.tolist(), counts.tolist()):
+        listed[st_:st_ + ct] = True
+    ids = torch.unique(pair_tri[listed])
+    fields = 29 if layout == "corners" else 33
+    nbytes = 8 * (fb.numel() + depth.numel()) + 4 * fields * ids.numel() + \
+        4 * int(counts.sum()) + 8 * counts.numel() + 64
+    kind = "corners" if layout == "corners" else "planes"
+    o = TRI_OPS
+    ops = (o["pixel"] + o["scissor"] * (scissor is not None)) * npx + \
+        o["edges_" + kind] * int(counts.sum()) + \
+        o["walk_" + kind] * walked + o["inside_" + kind] * inside + \
+        o["shade_" + layout] * covered
+    return _bound(nbytes, ops) + (f"{walked} (pixel, triangle) pairs "
+                                  f"walked, {inside} inside ("
+                                  f"{inside / max(walked, 1):.2%}), "
+                                  f"{passing} passing, {covered} pixels "
+                                  f"covered",)
+
+
 BOUNDS = {"B1": bound_b1, "B2": bound_b2, "B3": bound_b3, "B4": bound_b4,
-          "B5": bound_b5, "B6": bound_b6}
+          "B5": bound_b5, "B6": bound_b6, "B7": bound_tris, "B8": bound_tris}
 
 
 def near_plane_app(device):
@@ -704,6 +865,8 @@ def time_kernel(kid, a, kw, launches, err, library=None):
         f"plain {p_ms:.4f} ms{lib}, bound {b_ms:.4f} ms ({by}{extra}), "
         f"{b_ms / k_ms:.1%} of the bound")
     name, source, replaces = KERNELS[kid]
+    if kid in ("B7", "B8"):          # one wrapper, two kernels
+        name = f"{name}(layout={kw['layout']})"
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches, "max_abs_err": err,
             "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": by,
@@ -979,6 +1142,89 @@ def triangle_scene(device, seed=0, n_tris=288):
             for x in (cc, cn, np.ones(n_tris, bool), mat, light)]
 
 
+TRI_KW = dict(tile_h=32, tile_w=128, max_per_tile=128)
+TRI_SCISSOR = (20.5, 10.0, 290.25, 170.0)
+
+
+def tri_scene(device, seed=0):
+    """B7/B8's scene (also tests/test_torch_tris.py's), 320x180: 240
+    random triangles of varying size and per-corner w, 20 exact duplicates
+    of earlier ones later in the list (equal-depth ties), 150 tiny
+    triangles crowding the top-left 32x128 tile past max_per_tile = 128,
+    12 off-screen and ~10% back-facing ones; random corner normals,
+    colours, emissive, metallic and roughness; a 19-plane framebuffer and
+    a depth buffer holding 0.5 on a fifth of the pixels. Returns a dict
+    of tensors on `device` (clip (T,3,4), normals (T,3,3), colors (T,4),
+    emissive (T,3), metallic, roughness (T,), fb (19,H,W), depth (H,W),
+    light (16,))."""
+    rng = np.random.default_rng(seed)
+    H, W = 180, 320
+
+    def tris(n, lo, hi, size):
+        c = rng.uniform(lo, hi, (n, 1, 2)) * rng.choice([-1.0, 1.0],
+                                                         (n, 1, 2))
+        return c + rng.uniform(-size, size, (n, 3, 2))
+
+    ndc = np.concatenate([
+        tris(240, 0.0, 1.1, 0.3),
+        np.stack([rng.uniform(-1.0, -0.26, (150, 1)),
+                  rng.uniform(0.7, 1.0, (150, 1))], -1)
+        + rng.uniform(-0.03, 0.03, (150, 3, 2)),
+        tris(12, 1.6, 3.0, 0.2)])
+    e1, e2 = ndc[:, 1] - ndc[:, 0], ndc[:, 2] - ndc[:, 0]
+    # counter-clockwise in NDC (y up) is front-facing; flip all but ~10%
+    back = (e1[:, 0] * e2[:, 1] - e1[:, 1] * e2[:, 0]) < 0
+    flip = back & (rng.uniform(size=len(ndc)) > 0.1)
+    ndc[flip] = ndc[flip][:, [0, 2, 1]]
+    w = rng.uniform(1.0, 4.0, (len(ndc), 3, 1))
+    z = rng.uniform(0.05, 0.95, (len(ndc), 3, 1))
+    clip = np.concatenate([ndc * w, z * w, w], -1)
+    clip = np.concatenate([clip[:240], clip[rng.choice(240, 20, False)],
+                           clip[240:]])
+    n = clip.shape[0]
+    nrm = rng.normal(size=(n, 3, 3))
+    nrm /= np.linalg.norm(nrm, axis=-1, keepdims=True)
+    fb = rng.uniform(0.0, 1.0, (19, H, W))
+    depth = np.where(rng.uniform(size=(H, W)) < 0.2, 0.5, 0.0)
+    light = np.zeros(16)
+    light[:9] = [0.3, -0.8, -0.5, 1.0, 0.9, 0.8, 0.1, 0.1, 0.13]
+    out = dict(clip=clip, normals=nrm, colors=rng.uniform(0.1, 1.0, (n, 4)),
+               emissive=rng.uniform(0.0, 0.2, (n, 3)),
+               metallic=rng.uniform(0.0, 1.0, n),
+               roughness=rng.uniform(0.1, 1.0, n), fb=fb, depth=depth,
+               light=light)
+    return {k: torch.tensor(v, dtype=torch.float32, device=device)
+            for k, v in out.items()}
+
+
+def tri_scene_calls(dev):
+    """The six raster_tris instantiations (layout x scissor) on tri_scene
+    moved to `dev`: a list of (args, kwargs), binned with bin_tris."""
+    from bevy_tpu_torch.ops import raster3d as r3
+    from bevy_tpu_torch.ops import raster3d_tris as rt
+    s = tri_scene(dev)
+    H, W = s["depth"].shape
+    active = torch.ones(s["clip"].shape[0], dtype=torch.bool, device=dev)
+    setup = r3.triangle_setup_corners(s["clip"], active, W, H)
+    pair_tri, starts, counts, _ = rt.bin_tris(setup["valid"], setup["aabb"],
+                                              H, W, **TRI_KW)
+    tables = {"corners": rt.pack_tri_table(setup, s["normals"], s["colors"],
+                                           s["emissive"])}
+    tables["planes"] = tables["planes_gbuf"] = rt.pack_tri_planes(
+        setup["corners"], setup["depth"], setup["inv_w"], setup["area2"],
+        setup["valid"], s["normals"], s["colors"], s["emissive"],
+        s["metallic"], s["roughness"])
+    calls = []
+    for layout, table in tables.items():
+        fb = s["fb"] if layout == "planes_gbuf" else s["fb"][:4].contiguous()
+        for sc in (None, TRI_SCISSOR):
+            calls.append(((fb, s["depth"], table, pair_tri, starts, counts,
+                           s["light"], sc),
+                          dict(tile_h=TRI_KW["tile_h"],
+                               tile_w=TRI_KW["tile_w"], layout=layout)))
+    return calls
+
+
 COMPOSITE_KW = dict(win_h=16, cs=12)
 
 
@@ -1182,6 +1428,192 @@ def sharded_lights_phases(dev, n, smi, golden_img, full_img):
     torch.cuda.empty_cache()
 
 
+def cubes_batch(app):
+    """Batched-uniform geometry of a many_cubes world for
+    raster_batched_legacy: every cube's clip-space corners (Ni, 24, 4) and
+    world normals (Ni, 24, 3) under the world's camera, the cuboid's
+    triangles, instance validity, colour, emissive, metallic and
+    roughness, and the (16,) light vector of its light and ambient."""
+    from bevy_tpu_torch.ecs.component import get_spec
+    from bevy_tpu_torch.math.affine import TRS, trs_to_mat4
+    from bevy_tpu_torch.math.quat import quat_rotate_vec3
+    from bevy_tpu_torch.render.camera import (
+        Camera3d, perspective_infinite_reverse, view_matrix)
+    from bevy_tpu_torch.render.mesh import cuboid
+    from bevy_tpu_torch.render.mesh3d import (
+        AmbientLight, DirectionalLight, Mesh3d, MeshMaterial)
+    from bevy_tpu_torch.transform import GlobalTransform
+    w = app.world
+    dev = w.device
+    H, W = w.state["res"]["render_target"]["depth"].shape
+    gt = {f: w.column(GlobalTransform, f)
+          for f in ("translation", "rotation", "scale")}
+    ci = int(w.query_rows(Camera3d)[0])
+    li = int(w.query_rows(DirectionalLight)[0])
+    rows = torch.as_tensor(w.query_rows(Mesh3d), device=dev)
+    vp = perspective_infinite_reverse(
+        w.column(Camera3d, "fov")[ci], W / H,
+        w.column(Camera3d, "near")[ci]) @ view_matrix(
+            gt["translation"][ci], gt["rotation"][ci], gt["scale"][ci])
+    mats = trs_to_mat4(TRS(translation=gt["translation"][rows],
+                           rotation=gt["rotation"][rows],
+                           scale=gt["scale"][rows]))
+    m = cuboid()
+    ph = torch.as_tensor(np.concatenate(
+        [m.positions, np.ones((m.num_vertices, 1), np.float32)], 1),
+        device=dev)
+    clip = torch.einsum("nij,vj->nvi", torch.einsum("ij,njk->nik", vp, mats),
+                        ph)
+    nrm = quat_rotate_vec3(gt["rotation"][rows][:, None, :],
+                           torch.as_tensor(m.normals, device=dev)[None])
+    amb = w.state["res"][get_spec(AmbientLight).name]
+    fwd = torch.tensor([0.0, 0.0, -1.0], device=dev)
+    light = torch.cat([
+        quat_rotate_vec3(gt["rotation"][li], fwd),
+        w.column(DirectionalLight, "color")[li] *
+        w.column(DirectionalLight, "illuminance")[li],
+        amb["color"] * amb["brightness"], torch.zeros(7, device=dev)])
+    return dict(clip=clip, nrm=nrm, triangles=m.triangles,
+                inst_ok=torch.ones(len(rows), dtype=torch.bool, device=dev),
+                col_i=w.column(MeshMaterial, "base_color")[rows],
+                emi_i=w.column(MeshMaterial, "emissive")[rows],
+                met_i=w.column(MeshMaterial, "metallic")[rows],
+                rgh_i=w.column(MeshMaterial, "perceptual_roughness")[rows],
+                light=light, size=(H, W))
+
+
+def tri_phases(dev, n, smi, results):
+    """Phases 20-24: B7 and B8 against plain on the CPU test scene, the
+    cubes_f3 and shapes_f1 goldens through the general route, many_cubes
+    160k and 3d_shapes at 1280x720 through it, and raster_batched_legacy
+    (B8) forward and deferred on the 160k cubes (entries of `results`)."""
+    from types import SimpleNamespace
+
+    import torch_3d_shapes
+    import torch_many_cubes
+    from bevy_tpu_torch.render import frame_image
+    from bevy_tpu_torch.render import mesh3d
+
+    # -- 20: B7 / B8, all six instantiations, on the CPU test scene -------
+    for a, kw in tri_scene_calls(dev):
+        kid = kernel_id(kernel_fn("B7"), kw)
+        err = compare(kid, a, kw)
+        log(f"{kid} vs plain, test scene "
+            f"({kw['layout']}, scissor {'on' if a[7] else 'off'}): "
+            f"bit-equal (max abs err {err})")
+
+    # -- 21: the cubes_f3 golden through backend="xla" --------------------
+    app = torch_many_cubes.build_app(n_cubes=300, width=320, height=180,
+                                     capacity=512, backend="xla", device=dev)
+    with Recorder() as rec:
+        app.run(max_frames=3, dt=1 / 60)
+    torch.cuda.synchronize()
+    errs = [compare("B7", a, kw) for a, kw in rec.calls["B7"]]
+    if len(errs) != 3:
+        raise AssertionError(f"cubes_f3 called B7 {len(errs)} times")
+    log(f"B7 vs plain, cubes_f3 scene: {len(errs)} calls bit-equal (max abs "
+        f"err {max(errs)})")
+    check_golden(frame_image(app), CUBES_XLA_GOLDEN)
+    check_stats(app.world.state, ("pair_overflow", "tile_overflow"))
+
+    # -- 22: the shapes_f1 golden (3d_shapes twin, 320x180) ---------------
+    app = torch_3d_shapes.build_app(width=320, height=180, device=dev)
+    with Recorder() as rec:
+        app.update(dt=1 / 60)
+    torch.cuda.synchronize()
+    errs = [compare("B7", a, kw) for a, kw in rec.calls["B7"]]
+    if len(errs) != 1:
+        raise AssertionError(f"shapes_f1 called B7 {len(errs)} times")
+    log(f"B7 vs plain, shapes_f1 scene: bit-equal (max abs err {errs[0]})")
+    check_golden(frame_image(app), SHAPES_GOLDEN)
+    del app, rec
+
+    # -- 23: full width through the general route -------------------------
+    app = torch_many_cubes.build_app(backend="xla", device=dev)
+    ms, launches, stats, covered = timed_frames(app, n)
+    log(f"many_cubes 160000 @1280x720, general route (backend='xla'): "
+        f"{ms:.3f} ms/frame over {n} frames (CUDA events; {smi})")
+    log(f"launches in those {n} frames: B7 {launches['B7']}; pair_overflow "
+        f"{stats['pair_overflow']}, tile_overflow {stats['tile_overflow']} "
+        f"({stats['tile_overflow'] / n}/frame); covered pixels "
+        f"{covered:.3f}")
+    if launches["B7"] != n:
+        raise AssertionError(f"B7 launches on the general route: {launches}")
+    if covered < 0.05:
+        raise AssertionError("full-size general-route frame drew too little")
+    with Recorder() as rec:
+        app.update(dt=1 / 60)
+    torch.cuda.synchronize()
+    a, kw = rec.calls["B7"][-1]
+    err = compare("B7", a, kw)
+    log(f"B7 at full size: bit-equal to plain (max abs err {err}; "
+        f"{a[2].shape[0]} triangle rows, listed {int(a[5].sum())}, most in "
+        f"a tile {int(a[5].max())})")
+    results["B7"] = time_kernel("B7", a, kw, launches["B7"], err)
+    batch = cubes_batch(app)
+    del app, rec
+    torch.cuda.empty_cache()
+
+    app = torch_3d_shapes.build_app(width=1280, height=720, device=dev)
+    ms, launches, stats, covered = timed_frames(app, n)
+    log(f"3d_shapes @1280x720, general route: {ms:.3f} ms/frame over {n} "
+        f"frames (CUDA events; {smi}); B7 {launches['B7']} launches, "
+        f"pair_overflow {stats['pair_overflow']}, tile_overflow "
+        f"{stats['tile_overflow']} ({stats['tile_overflow'] / n}/frame); "
+        f"covered pixels {covered:.3f}")
+    if launches["B7"] != n:
+        raise AssertionError(f"B7 launches in 3d_shapes: {launches}")
+    del app
+
+    # -- 24: raster_batched_legacy (B8) on the 160k cubes -----------------
+    H, W = batch["size"]
+    kw = dict(width=W, height=H, tile_h=16, tile_w=128, pairs_per_tri=2,
+              max_per_tile=3072, interpret=False, met_i=batch["met_i"],
+              rgh_i=batch["rgh_i"])
+    args = [batch[k] for k in ("clip", "nrm", "triangles", "inst_ok",
+                               "col_i", "emi_i", "light")]
+
+    def legacy(deferred):
+        target = SimpleNamespace(
+            color=torch.zeros((4, H, W), device=dev),
+            gbuffer=torch.zeros((19, H, W), device=dev),
+            depth=torch.zeros((H, W), device=dev))
+        st = SimpleNamespace(
+            pair_overflow=torch.zeros((), dtype=torch.int32, device=dev),
+            tile_overflow=torch.zeros((), dtype=torch.int32, device=dev))
+        mesh3d.raster_batched_legacy(*args, target, st, deferred=deferred,
+                                     **kw)
+        return target, st
+
+    reset_launches()
+    with Recorder() as rec:
+        outs = [legacy(False), legacy(True)]
+    torch.cuda.synchronize()
+    launches = read_launches()
+    if launches["B8"] != 2:
+        raise AssertionError(f"B8 launches in the two legacy calls: "
+                             f"{launches}")
+    for (target, st), (a, kw8) in zip(outs, rec.calls["B8"]):
+        err = compare("B8", a, kw8)
+        drawn = float((target.depth > 0).float().mean())
+        ms_call = cuda_ms(lambda: legacy(kw8["layout"] == "planes_gbuf"), 5)
+        log(f"raster_batched_legacy ({kw8['layout']}) on 160000 cubes "
+            f"@1280x720: {ms_call:.3f} ms a call (CUDA events; {smi}); B8 "
+            f"bit-equal to plain (max abs err {err}); pair_overflow "
+            f"{int(st.pair_overflow)}, tile_overflow "
+            f"{int(st.tile_overflow)}; covered pixels {drawn:.3f}")
+        if drawn < 0.05:
+            raise AssertionError("raster_batched_legacy drew too little")
+        if kw8["layout"] == "planes":
+            results["B8"] = time_kernel("B8", a, kw8, launches["B8"], err)
+        else:
+            g_ms = cuda_ms(lambda: kernel_fn("B8")(*a, **kw8), 20)
+            b_ms, by, extra = bound_tris(a, kw8)
+            log(f"B8 planes_gbuf at full size: kernel {g_ms:.4f} ms, bound "
+                f"{b_ms:.4f} ms ({by}, {extra})")
+    torch.cuda.synchronize()
+
+
 def main():
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -1219,7 +1651,8 @@ def main():
             kind = next((k for k in ("splat_windows", "merge_windows",
                                      "decode_keys",
                                      "init_keys", "stream_tiles",
-                                     "sprite_tiles", "sprite_splat", "shade")
+                                     "sprite_tiles", "sprite_splat",
+                                     "tri_raster", "shade")
                          if k in entry), entry)
             regs.setdefault(kind, []).append(
                 int(ln.split("Used ")[1].split()[0]))
@@ -1374,6 +1807,8 @@ def main():
     sharded_lights_phases(dev, n, smi, lights_img, lights_full_img)
 
     sprite_phases(dev, n, smi, results)
+
+    tri_phases(dev, n, smi, results)
 
     log(f"chip_smoke.py ran {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [results[k] for k in KERNELS]}))

@@ -5,11 +5,16 @@ cube-grid layout, deterministic orbiting camera in --benchmark mode).
 The frame — time, orbit camera, transform propagation, instance frustum
 cull, vertex transform, cluster cull, plane setup, window decomposition,
 the window-splat (B1) and streaming-tile (B2) CUDA kernels and the flat
-resolve — runs eagerly on the device given to `build_app`.
+resolve — runs eagerly on the device given to `build_app`. With
+`backend="xla"` the mesh pass takes the general route instead (the
+JAX package's forward route on a GPU): every cube's triangles through
+the near-plane clip, triangle setup, tile binning and the per-tile
+triangle raster B7.
 
     python examples/torch_many_cubes.py              # 160k cubes, ms/frame
     python examples/torch_many_cubes.py --profile 10 # + per-span device time
     python examples/torch_many_cubes.py --shards 4   # mesh pass over 4 shards
+    python examples/torch_many_cubes.py --backend xla  # the general route
 """
 
 from __future__ import annotations
@@ -167,9 +172,12 @@ def main():
                     help="also profile this many frames (torch.profiler)")
     ap.add_argument("--shards", type=int, default=0, metavar="N",
                     help="N shards, all on the first card (parallel/)")
+    ap.add_argument("--backend", default="auto",
+                    choices=("auto", "pallas", "xla"),
+                    help="the mesh pass's route: xla = the general route")
     args = ap.parse_args()
     app = build_app(shards=make_mesh(devices=["cuda"] * args.shards)
-                    if args.shards else None)
+                    if args.shards else None, backend=args.backend)
     step = app.frame_fn()
     state = app.world.state
     for _ in range(3):
@@ -185,8 +193,8 @@ def main():
     torch.cuda.synchronize()
     ms = start.elapsed_time(end) / n
     print(f"many_cubes {app.world.entity_count(Mesh3d)} on "
-          f"{torch.cuda.get_device_name(0)}, {args.shards or 'no'} shards: "
-          f"{ms:.3f} ms/frame")
+          f"{torch.cuda.get_device_name(0)}, backend {args.backend}, "
+          f"{args.shards or 'no'} shards: {ms:.3f} ms/frame")
     if args.profile:
         profile(step, state, args.profile)
 

@@ -19,6 +19,7 @@ import torch
 import bevy_tpu_torch
 from bevy_tpu_torch.ops import _cuda
 from bevy_tpu_torch.ops import raster2d, raster2d_splat
+from bevy_tpu_torch.ops import raster3d_tris as tris
 from bevy_tpu_torch.ops import raster3d_splat as splat
 from bevy_tpu_torch.ops import raster3d_visbuf as vis
 from bevy_tpu_torch.ops import shade
@@ -27,7 +28,7 @@ ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "bevy_tpu_torch").rglob("*.py")) + sorted(
     (ROOT / "examples").glob("torch_*.py")) + [ROOT / "chip_smoke.py"]
 TWINS = ("torch_many_cubes", "torch_many_lights", "torch_many_sprites",
-         "torch_bevymark", "torch_breakout")
+         "torch_bevymark", "torch_breakout", "torch_3d_shapes")
 
 
 def _imports(path):
@@ -310,3 +311,53 @@ def test_sprite_kernels_match_plain_on_card(bf16):
     assert raster2d_splat.sprite_splat.launches == n5 + 1
     with pytest.raises(ValueError):
         raster2d.sprite_tiles(fb, a4[0], a4[1].long(), a4[2], a4[3], atlas)
+
+
+def _tri_calls(device="cpu"):
+    """B7 / B8's six instantiations on chip_smoke.tri_scene (whose
+    triangles 240-259 repeat earlier ones exactly, later in the list)."""
+    sys.path.insert(0, str(ROOT))
+    from chip_smoke import tri_scene, tri_scene_calls
+    return tri_scene(device), tri_scene_calls(device)
+
+
+@pytest.mark.parametrize("case", range(6), ids=[
+    f"{lay}-{sc}" for lay in ("corners", "planes", "planes_gbuf")
+    for sc in ("full", "scissor")])
+def test_tri_wrapper_takes_plain_version_on_cpu(case):
+    """On CPU tensors raster_tris runs its plain version and launches
+    nothing; the list order holds (an exact duplicate later in a tile's
+    list never takes a pixel from the earlier triangle: `z > depth` is
+    strict) and G-buffer planes 12 and up pass through."""
+    tris.raster_tris.kernel_launches.update(B7=0, B8=0)
+    scene, calls = _tri_calls()
+    a, kw = calls[case]
+    fb, dep = tris.raster_tris(*a, **kw)
+    assert fb.shape == a[0].shape and dep.shape == a[1].shape
+    alpha = fb[3].numpy()
+    assert not np.isin(alpha, scene["colors"][240:260, 3].numpy()).any()
+    assert np.isin(alpha, scene["colors"][:240, 3].numpy()).mean() > 0.2
+    assert torch.equal(fb[12:], a[0][12:])
+    assert tris.raster_tris.kernel_launches == {"B7": 0, "B8": 0}
+    assert _cuda._Loaded.lib is None
+
+
+@pytest.mark.cuda
+def test_tri_kernels_match_plain_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (runs in chip_smoke.py's environment)")
+    _, calls = _tri_calls("cuda")
+    n0 = dict(tris.raster_tris.kernel_launches)
+    for a, kw in calls:
+        fk, dk = tris.raster_tris(*a, **kw)
+        fp, dp = tris._raster_tris_plain(*a, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(fk.view(torch.int32), fp.view(torch.int32))
+        assert torch.equal(dk.view(torch.int32), dp.view(torch.int32))
+    assert tris.raster_tris.kernel_launches == {"B7": n0["B7"] + 2,
+                                                "B8": n0["B8"] + 4}
+    a, kw = calls[0]
+    with pytest.raises(ValueError):
+        tris.raster_tris(*a[:3], a[3].long(), *a[4:], **kw)
+    with pytest.raises(ValueError, match="different devices"):
+        tris.raster_tris(a[0].cpu(), *a[1:], **kw)
