@@ -4,27 +4,59 @@
 // Replaces bevy_tpu/ops/shade_pallas.py::_shade_kernel (entry
 // deferred_shade). There, one grid step shaded a whole 32x128 bin tile:
 // it DMA'd the tile's (F, mpt) light list into SMEM behind a semaphore and
-// walked it with the tile's pixels as vectors. Here one thread shades one
-// pixel; a 256-thread CTA covers a 16x16 block inside one bin tile, so the
-// 16 CTAs of a 32x128 tile walk the same list in parallel.
+// walked it with the tile's pixels as vectors, skipping a light whose
+// range sphere misses the tile's sub-frustum. Here one thread shades one
+// pixel; a 256-thread CTA covers a 16x16 block inside one bin tile.
 //
-// What bounds it on an H100: arithmetic. Each (pixel, light) pair that
-// survives the early skips costs ~100 FP32 operations (two rsqrt, four
-// divisions), against ~70 bytes of G-buffer, depth and output per pixel
-// for the whole list; at many_lights' 1280x720 with up to 512 lights a
-// tile it is FP32-throughput bound, with the reference's exact skips as
-// the only work reduction.
+// What bounds it on an H100: arithmetic on the light walk. A (pixel,
+// light) body costs ~94 FP32 operations (two rsqrt, four divisions) and
+// more with spot, clearcoat or anisotropy, against ~70 bytes of G-buffer,
+// depth and output a pixel. The reference walks every light of the tile
+// that passes the tile test; at many_lights 100k (a light grid 1.5 above
+// the floor, range 6) most of those pairs add exactly nothing, because a
+// 16x16 block sees only a small floor patch. The work the inputs need is
+// the body over the pairs that contribute (win > 0).
 //
 // Design:
-// - The CTA stages its tile's light list from (F, mpt) into shared memory
-//   in chunks of 128 lights (F x 128 x 4 B <= 12 KB), and while staging
-//   computes each light's sphere-vs-tile-sub-frustum test (the reference's
-//   per-light skip, exact-conservative, from the bin tile's four corners)
-//   once per chunk into a flag array: the skip is uniform across the CTA,
-//   so no warp diverges on it. Rect lights always take the full body.
-// - Sky skip: a block whose pixels are all sky skips the light walk
-//   (__syncthreads_or); inside a mixed block, sky pixels skip the body.
-//   Both only drop terms of pixels that take the clear colour.
+// - Block bounds, once a CTA: the bin tile's four sub-frustum side planes
+//   (the reference's test, from the tile's corners) and the 16x16 block's
+//   own, with the same corner_dir / side_plane arithmetic and the band row
+//   offset P[34]; and the world-space AABB of the block's geometry pixels
+//   (dep > 0), reduced with warp shuffles and shared memory. A sky-only
+//   block skips the walk.
+// - Lights are staged 128 at a time (F x 128 floats) with cp.async into a
+//   double buffer: the next chunk is in flight while the current one is
+//   culled and walked.
+// - Cull and compaction, one thread a staged light: the reference's tile
+//   test, unchanged (the plain version applies it, so the kernel must
+//   too), then the block side planes with a relative margin of 2^-10 of
+//   (range + |light - eye|_1), and the sphere-vs-geometry-AABB test. A
+//   warp ballot, a popcount prefix and a scan of the four warps' totals
+//   write the survivors' slots to shared memory in list order, so every
+//   pixel adds its terms in the reference's order. Rect lights walk the
+//   whole list, as in the reference.
+// - The AABB test is exact with no margin: it computes the gap from the
+//   light centre to the box with the body's own subtraction (d0 - w) and
+//   squares and sums it in the body's order. Rounding is monotone, so
+//   every geometry pixel's d2 is >= that sum and its q = d2 / rng2 >= the
+//   tested one; a dropped light has q >= 1 on every geometry pixel, so
+//   1 - q*q <= 0 and win == 0 there. The side planes are conservative by
+//   their margin: a pixel centre lies half a pixel inside its block, which
+//   puts its world point ~6e-4 of its distance inside each plane, far
+//   beyond the few-ulp errors the margin covers.
+// - Per-pixel exact early-out: the body computes d2, q and win exactly as
+//   before and skips the rest of the light where win == 0.0f (a warp skips
+//   the light when all its lanes do). Why the skipped term is +0.0: atten
+//   = win*win / (d2 + 1) = +0, so cr = d(3) * 0 is +-0, and every other
+//   factor of (dr + sr) * cr * nol (or ((dr + sr) * keep + coat) * cr *
+//   nol) is finite and non-negative for a G-buffer of finite, in-range
+//   values (every denominator is clamped away from 0, nol >= 0, albedo,
+//   metallic and clearcoat in [0, 1]); acc + (+-0) == acc, since acc
+//   (ambient + directional, both >= 0) is never -0. The one case where
+//   the skip is not exact: a NaN or an infinity in the G-buffer, where
+//   the walk would have added NaN (x * 0) and the skip adds nothing. The
+//   block cull drops only lights whose win is 0 on every geometry pixel,
+//   so the same argument covers it.
 // - The six static variants (spot, rect, clearcoat, anisotropy,
 //   reflectance, specular tint) are template parameters; no shadow plane
 //   means a factor of 1.0f (x * 1.0f == x, exact).
@@ -43,9 +75,13 @@ namespace {
 
 constexpr int BLK = 16;       // CTA block: BLK x BLK pixels
 constexpr int THREADS = BLK * BLK;
+constexpr int NWARPS = THREADS / 32;
 constexpr int CHUNK = 128;    // lights staged per pass
+constexpr int CWARPS = CHUNK / 32;   // warps that cull a chunk
 constexpr int MAXF = 24;
 constexpr float PI = 3.14159265f;
+constexpr float PLANE_MARGIN = 1.0f / 1024.0f;
+static_assert(CHUNK <= THREADS, "one thread culls each staged light");
 
 struct Args {
   const float* gbuf;    // (nplanes, H, W)
@@ -84,8 +120,46 @@ __device__ __forceinline__ Corner side_plane(Corner a, Corner b, Corner ce) {
   return {nx * s, ny * s, nz * s};
 }
 
+// The inward side planes of the sub-frustum through the screen rect
+// [x0, x0 + w) x [y0, y0 + h) (y0 with the band offset added).
+__device__ __forceinline__ void sub_frustum(const float* p, float x0,
+                                            float y0, float w, float h,
+                                            Corner* out) {
+  const Corner ca = corner_dir(p, x0, y0);
+  const Corner cb = corner_dir(p, x0 + w, y0);
+  const Corner cc = corner_dir(p, x0 + w, y0 + h);
+  const Corner cd = corner_dir(p, x0, y0 + h);
+  const Corner ce = corner_dir(p, x0 + 0.5f * w, y0 + 0.5f * h);
+  out[0] = side_plane(ca, cb, ce);
+  out[1] = side_plane(cb, cc, ce);
+  out[2] = side_plane(cc, cd, ce);
+  out[3] = side_plane(cd, ca, ce);
+}
+
 __device__ __forceinline__ float clampf(float x, float lo, float hi) {
   return fminf(fmaxf(x, lo), hi);
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// The gap from c to [lo, hi] by the body's subtraction c - w: every w in
+// [lo, hi] gives |c - w| >= |gap| (rounding is monotone).
+__device__ __forceinline__ float gap(float c, float lo, float hi) {
+  return c > hi ? c - hi : (c < lo ? c - lo : 0.0f);
 }
 
 // Per-pixel state shared by every light (the reference's values hoisted
@@ -151,14 +225,23 @@ __device__ __forceinline__ void shade_light(const Pixel& q, float lx,
   }
 }
 
+// Two CTAs an SM at least: with the thread count alone, ptxas stops at 80
+// registers in 20 of the 64 variants (for a third CTA an SM) and spills
+// 24-32 bytes there; with the minimum of two it uses 80-96 and spills
+// none (NVIDIA H100, nvcc 12.9).
 template <bool SPOT, bool RECT, bool CC, bool ANISO, bool REFL, bool TINT>
-__global__ void __launch_bounds__(THREADS) shade(Args a) {
+__global__ void __launch_bounds__(THREADS, 2) shade(Args a) {
   __shared__ float P[40];
-  __shared__ float L[MAXF * CHUNK];
-  __shared__ unsigned char inside[CHUNK];
-  __shared__ Corner planes[4];
+  __shared__ float L[2][MAXF * CHUNK];     // double-buffered light chunk
+  __shared__ unsigned char slots[CHUNK];   // survivors, in list order
+  __shared__ int wtot[CWARPS];
+  __shared__ float red[6][NWARPS];
+  __shared__ float box[6];                 // geometry AABB: min xyz, max xyz
+  __shared__ Corner planes[4];             // the bin tile's side planes
+  __shared__ Corner bplanes[4];            // this block's side planes
 
   const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
   const int bx0 = blockIdx.x * BLK, by0 = blockIdx.y * BLK;
   const int x = bx0 + tid % BLK, y = by0 + tid / BLK;
   const bool in = x < a.W && y < a.H;
@@ -166,23 +249,29 @@ __global__ void __launch_bounds__(THREADS) shade(Args a) {
   const size_t pix = in ? (size_t)y * a.W + x : 0;
   if (tid < 40) P[tid] = a.params[tid];
   const int t = (by0 / a.tile_h) * a.ntx + bx0 / a.tile_w;
+  const int cnt = min(a.counts[t], a.mpt);
+  const float* tl = a.table + (size_t)t * a.F * a.mpt;
+  const int nchunks = (cnt + CHUNK - 1) / CHUNK;
+  // the first chunk's copy overlaps the pixel setup
+  auto stage = [&](int buf, int c0) {
+    const int n = min(CHUNK, cnt - c0);
+    for (int i = tid; i < a.F * CHUNK; i += THREADS) {
+      const int k = i / CHUNK, j = i % CHUNK;
+      if (j < n) cp_async4(&L[buf][i], tl + (size_t)k * a.mpt + c0 + j);
+    }
+    cp_async_commit();
+  };
+  if (nchunks > 0) stage(0, 0);
   __syncthreads();
 
   if (tid == 0) {
-    // the bin tile's sub-frustum side planes (reference: corner_dir /
-    // side_plane, from the tile's corners, not this block's)
-    const float tx0 = (float)((bx0 / a.tile_w) * a.tile_w);
-    const float ty0 = (float)((by0 / a.tile_h) * a.tile_h) + P[34];
-    const float tw = (float)a.tile_w, th = (float)a.tile_h;
-    const Corner ca = corner_dir(P, tx0, ty0);
-    const Corner cb = corner_dir(P, tx0 + tw, ty0);
-    const Corner cc = corner_dir(P, tx0 + tw, ty0 + th);
-    const Corner cd = corner_dir(P, tx0, ty0 + th);
-    const Corner ce = corner_dir(P, tx0 + 0.5f * tw, ty0 + 0.5f * th);
-    planes[0] = side_plane(ca, cb, ce);
-    planes[1] = side_plane(cb, cc, ce);
-    planes[2] = side_plane(cc, cd, ce);
-    planes[3] = side_plane(cd, ca, ce);
+    // the bin tile's sub-frustum (reference: corner_dir / side_plane)
+    sub_frustum(P, (float)((bx0 / a.tile_w) * a.tile_w),
+                (float)((by0 / a.tile_h) * a.tile_h) + P[34],
+                (float)a.tile_w, (float)a.tile_h, planes);
+  } else if (tid == 32) {
+    sub_frustum(P, (float)bx0, (float)by0 + P[34], (float)BLK, (float)BLK,
+                bplanes);
   }
 
   auto g = [&](int k) { return in ? a.gbuf[(size_t)k * plane + pix] : 0.0f; };
@@ -202,6 +291,32 @@ __global__ void __launch_bounds__(THREADS) shade(Args a) {
   wx = wx * inv_ww;
   wy = wy * inv_ww;
   wz = wz * inv_ww;
+
+  // the AABB of the block's geometry pixels
+  {
+    float v[6] = {geom ? wx : INFINITY,  geom ? wy : INFINITY,
+                  geom ? wz : INFINITY,  geom ? wx : -INFINITY,
+                  geom ? wy : -INFINITY, geom ? wz : -INFINITY};
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+#pragma unroll
+      for (int k = 0; k < 6; ++k) {
+        const float o = __shfl_xor_sync(0xffffffffu, v[k], off);
+        v[k] = k < 3 ? fminf(v[k], o) : fmaxf(v[k], o);
+      }
+    }
+    if (lane == 0) {
+#pragma unroll
+      for (int k = 0; k < 6; ++k) red[k][warp] = v[k];
+    }
+  }
+  __syncthreads();
+  if (tid < 6) {
+    float r = red[tid][0];
+    for (int w = 1; w < NWARPS; ++w)
+      r = tid < 3 ? fminf(r, red[tid][w]) : fmaxf(r, red[tid][w]);
+    box[tid] = r;
+  }
 
   Pixel q;
   const float ar = g(0), ag = g(1), ab = g(2), aa = g(3);
@@ -282,34 +397,64 @@ __global__ void __launch_bounds__(THREADS) shade(Args a) {
   float acc_g = ag * P[23] + drg * lit;
   float acc_b = ab * P[24] + drb * lit;
 
-  // the tile's light walk, in list order; a block with no geometry skips it
-  const int cnt = min(a.counts[t], a.mpt);
-  const float* tl = a.table + (size_t)t * a.F * a.mpt;
-  if (__syncthreads_or(geom)) {
-    for (int c0 = 0; c0 < cnt; c0 += CHUNK) {
-      const int n = min(CHUNK, cnt - c0);
-      __syncthreads();  // the previous chunk is consumed
-      for (int i = tid; i < a.F * CHUNK; i += THREADS) {
-        const int k = i / CHUNK, j = i % CHUNK;
-        if (j < n) L[k * CHUNK + j] = tl[(size_t)k * a.mpt + c0 + j];
+  // the tile's light walk, culled to this block, in list order; a block
+  // with no geometry skips it (and drains its first copy)
+  if (!__syncthreads_or(geom)) {
+    cp_async_wait<0>();
+  } else {
+    for (int c = 0; c < nchunks; ++c) {
+      const int buf = c & 1, c0 = c * CHUNK, n = min(CHUNK, cnt - c0);
+      __syncthreads();  // chunk c - 1 is walked: its buffer may be reused
+      if (c + 1 < nchunks) {
+        stage(buf ^ 1, c0 + CHUNK);
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
       }
-      if (!RECT && tid < n) {
-        const float lcx = tl[c0 + tid] - P[31];
-        const float lcy = tl[(size_t)a.mpt + c0 + tid] - P[32];
-        const float lcz = tl[(size_t)2 * a.mpt + c0 + tid] - P[33];
-        const float rng = tl[(size_t)6 * a.mpt + c0 + tid];
-        bool ok = true;
+      __syncthreads();  // chunk c has landed for every thread
+      const float* Lb = L[buf];
+      bool keep = false;
+      if (tid < n) {
+        keep = true;
+        if constexpr (!RECT) {
+          const float l0 = Lb[tid], l1 = Lb[CHUNK + tid],
+                      l2 = Lb[2 * CHUNK + tid], rng = Lb[6 * CHUNK + tid];
+          const float lcx = l0 - P[31], lcy = l1 - P[32], lcz = l2 - P[33];
+          // the reference's tile test, as it is
 #pragma unroll
-        for (int k = 0; k < 4; ++k)
-          ok = ok && (planes[k].x * lcx + planes[k].y * lcy +
-                      planes[k].z * lcz > -rng);
-        inside[tid] = ok;
+          for (int k = 0; k < 4; ++k)
+            keep = keep && (planes[k].x * lcx + planes[k].y * lcy +
+                                planes[k].z * lcz >
+                            -rng);
+          const float margin =
+              PLANE_MARGIN * (rng + fabsf(lcx) + fabsf(lcy) + fabsf(lcz));
+#pragma unroll
+          for (int k = 0; k < 4; ++k)
+            keep = keep && (bplanes[k].x * lcx + bplanes[k].y * lcy +
+                                bplanes[k].z * lcz >
+                            -(rng + margin));
+          const float gx = gap(l0, box[0], box[3]);
+          const float gy = gap(l1, box[1], box[4]);
+          const float gz = gap(l2, box[2], box[5]);
+          const float rng2 = fmaxf(rng * rng, 1e-9f);
+          keep = keep && !((gx * gx + gy * gy + gz * gz) / rng2 >= 1.0f);
+        }
       }
+      const unsigned ball = __ballot_sync(0xffffffffu, keep);
+      if (warp < CWARPS && lane == 0) wtot[warp] = __popc(ball);
+      __syncthreads();
+      int m = 0, pre = 0;
+#pragma unroll
+      for (int w = 0; w < CWARPS; ++w) {
+        pre += w < warp ? wtot[w] : 0;
+        m += wtot[w];
+      }
+      if (keep) slots[pre + __popc(ball & ((1u << lane) - 1u))] = tid;
       __syncthreads();
       if (!geom) continue;
-      for (int j = 0; j < n; ++j) {
-        if (!RECT && !inside[j]) continue;  // uniform across the CTA
-        auto d = [&](int k) { return L[k * CHUNK + j]; };
+      for (int s = 0; s < m; ++s) {
+        const int j = slots[s];
+        auto d = [&](int k) { return Lb[k * CHUNK + j]; };
         float dx = d(0) - wx, dy = d(1) - wy, dz = d(2) - wz;
         float side = 1.0f;
         if constexpr (RECT) {
@@ -325,10 +470,11 @@ __global__ void __launch_bounds__(THREADS) shade(Args a) {
           dz = dz + qu * d(18) + qv * d(21);
         }
         const float d2 = dx * dx + dy * dy + dz * dz;
-        const float inv_d = rsqrtf(fmaxf(d2, 1e-9f));
         const float rng2 = fmaxf(d(6) * d(6), 1e-9f);
         const float r = d2 / rng2;
         const float win = clampf(1.0f - r * r, 0.0f, 1.0f);
+        if (win == 0.0f) continue;  // the term is +0.0 (see the header)
+        const float inv_d = rsqrtf(fmaxf(d2, 1e-9f));
         float atten = win * win / (d2 + 1.0f);
         if constexpr (SPOT) {
           const float cos_to = -(dx * inv_d * d(8) + dy * inv_d * d(9) +

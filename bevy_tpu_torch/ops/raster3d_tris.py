@@ -156,15 +156,73 @@ def bin_tris(valid, aabb, height, width, *, tile_h=32, tile_w=128,
     return pair_tri, starts, torch.clamp(ends - starts, max=mpt), stats
 
 
+BLOCK = 16          # kernel B7's CTA block: BLOCK x BLOCK pixels
+WARP_ROWS = 2       # the rows of the block each of B7's warps walks
+SLIVER = 2.0 ** -19  # B7's sliver bound, relative (see tri_in_block)
+
+
+def tri_in_block(table, pair_tri, starts, counts, width, *, tile_h=32,
+                 tile_w=128, block_h=BLOCK):
+    """(T, tile_h // block_h, tile_w // BLOCK, S) bool, S = the longest
+    list: which listed entries of each tile kernel B7 keeps for each
+    block_h x BLOCK block of it, in plain PyTorch (for tests and
+    measurement; the plain version walks the whole list). B7 culls each
+    CTA's BLOCK x BLOCK block so (the default), and each warp's rows with
+    block_h=WARP_ROWS.
+
+    An entry is kept iff the screen AABB of its record's corners (table
+    cols 0:6, the AABB bin_tris binned) overlaps the block by bin_tris'
+    floor rule, the blocks numbered across the frame of `width` pixels
+    (floor(min / block) <= block index <= floor(max / block)), or it is a
+    sliver: |area2| <= SLIVER * M * M * (2M + tile_h + tile_w), M the
+    AABB's longer side, area2 from the corners in triangle_setup_corners'
+    order. A pixel centre outside a non-sliver's AABB (by >= 1/2 px, as
+    every centre of a block the AABB misses is) reads outside its edges
+    in float arithmetic; a sliver's can read inside (csrc/tri_raster.cu
+    derives the bound), so B7 walks a sliver in every block of its
+    tiles, as the reference does."""
+    nt = counts.shape[0]
+    ns = int(counts.max()) if nt else 0
+    dev = table.device
+    ntx = _pad_to(width, tile_w) // tile_w
+    pmax = max(pair_tri.shape[0] - 1, 0)
+    slot = torch.clamp(starts[:, None] + torch.arange(
+        ns, dtype=torch.int32, device=dev)[None, :], max=pmax).long()
+    c = table[pair_tri[slot].long(), :6]                   # (T, S, 6)
+    ax, ay, bx_, by_, cx, cy = c.unbind(-1)
+    x0 = torch.minimum(torch.minimum(ax, bx_), cx)
+    x1 = torch.maximum(torch.maximum(ax, bx_), cx)
+    y0 = torch.minimum(torch.minimum(ay, by_), cy)
+    y1 = torch.maximum(torch.maximum(ay, by_), cy)
+    m = torch.maximum(x1 - x0, y1 - y0)
+    area2 = (bx_ - ax) * (cy - ay) - (by_ - ay) * (cx - ax)
+    sliver = ~(torch.abs(area2) >
+               m * m * (2.0 * m + float(tile_h + tile_w)) * SLIVER)
+    t = torch.arange(nt, device=dev)
+    bx = ((t % ntx) * (tile_w // BLOCK))[:, None] + \
+        torch.arange(tile_w // BLOCK, device=dev)[None, :]
+    by = ((t // ntx) * (tile_h // block_h))[:, None] + \
+        torch.arange(tile_h // block_h, device=dev)[None, :]
+    bx = bx.to(torch.float32)[:, None, :, None]
+    by = by.to(torch.float32)[:, :, None, None]
+    fx0, fx1 = (torch.floor(v / BLOCK)[:, None, None, :] for v in (x0, x1))
+    fy0, fy1 = (torch.floor(v / block_h)[:, None, None, :] for v in (y0, y1))
+    listed = torch.arange(ns, device=dev)[None, :] < counts[:, None]
+    hit = (fx0 <= bx) & (fx1 >= bx) & (fy0 <= by) & (fy1 >= by)
+    return (hit | sliver[:, None, None, :]) & listed[:, None, None, :]
+
+
 def _light_with_scissor(light, scissor, height, width):
     """The (16,) light vector with the scissor rect [x0, y0, x1, y1) in
-    slots 9:13 (the whole target when scissor is None)."""
-    dev = light.device
+    slots 9:13 (the whole target when scissor is None). Each slot is set
+    in place on the light's device (a fill, or a device copy of a 0-d
+    tensor): no blocking host-to-card copy a call."""
     sc = (0.0, 0.0, float(width), float(height)) if scissor is None \
         else scissor
-    sc = torch.stack([torch.as_tensor(s, dtype=torch.float32, device=dev)
-                      for s in sc])
-    return torch.cat([light[:9], sc, light[13:]]).contiguous()
+    lv = light[:16].to(torch.float32, copy=True)
+    for k, v in enumerate(sc):
+        lv[9 + k].fill_(v)
+    return lv
 
 
 def _coverage(d, px, py, layout):

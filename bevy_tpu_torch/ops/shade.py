@@ -107,11 +107,15 @@ def bin_lights(center_px, radius_px, active, nty, ntx, tile_h, tile_w,
     return table, tile_counts, stats
 
 
-def tile_side_planes(params, nty, ntx, tile_h, tile_w):
-    """World-space side planes of each bin tile's sub-frustum, through the
-    camera, oriented inward: (T, 4, 3). The reference's per-light early
-    skip tests a light's centre against them (see light_in_tile)."""
-    dev = params.device
+BLOCK = 16               # kernel B3's CTA block: BLOCK x BLOCK pixels
+PLANE_MARGIN = 2.0 ** -10  # B3's block side-plane margin, relative
+
+
+def _side_planes(params, x0, y0, w, h):
+    """World-space side planes of the sub-frustum through the screen
+    rects [x0, x0 + w) x [y0, y0 + h) (x0, y0 f32 tensors, y0 with the band
+    row offset added), through the camera, oriented inward: (..., 4, 3),
+    in kernel B3's `sub_frustum` arithmetic."""
     p = params
 
     def corner_dir(cx, cy):
@@ -126,14 +130,11 @@ def tile_side_planes(params, nty, ntx, tile_h, tile_w):
                                 torch.full_like(uw, 1e-12))
         return (ux * inv - p[31], uy * inv - p[32], uz * inv - p[33])
 
-    t = torch.arange(nty * ntx, device=dev)
-    tx0 = ((t % ntx) * tile_w).to(torch.float32)
-    ty0 = ((t // ntx) * tile_h).to(torch.float32) + p[34]
-    ca = corner_dir(tx0, ty0)
-    cb = corner_dir(tx0 + tile_w, ty0)
-    cc = corner_dir(tx0 + tile_w, ty0 + tile_h)
-    cd = corner_dir(tx0, ty0 + tile_h)
-    ce = corner_dir(tx0 + 0.5 * tile_w, ty0 + 0.5 * tile_h)
+    ca = corner_dir(x0, y0)
+    cb = corner_dir(x0 + w, y0)
+    cc = corner_dir(x0 + w, y0 + h)
+    cd = corner_dir(x0, y0 + h)
+    ce = corner_dir(x0 + 0.5 * w, y0 + 0.5 * h)
 
     def side_plane(a, b):
         nx = a[1] * b[2] - a[2] * b[1]
@@ -146,7 +147,17 @@ def tile_side_planes(params, nty, ntx, tile_h, tile_w):
         return torch.stack([nx * s, ny * s, nz * s], -1)
 
     return torch.stack([side_plane(ca, cb), side_plane(cb, cc),
-                        side_plane(cc, cd), side_plane(cd, ca)], 1)
+                        side_plane(cc, cd), side_plane(cd, ca)], -2)
+
+
+def tile_side_planes(params, nty, ntx, tile_h, tile_w):
+    """World-space side planes of each bin tile's sub-frustum, through the
+    camera, oriented inward: (T, 4, 3). The reference's per-light early
+    skip tests a light's centre against them (see light_in_tile)."""
+    t = torch.arange(nty * ntx, device=params.device)
+    tx0 = ((t % ntx) * tile_w).to(torch.float32)
+    ty0 = ((t // ntx) * tile_h).to(torch.float32) + params[34]
+    return _side_planes(params, tx0, ty0, tile_w, tile_h)
 
 
 def light_in_tile(planes, rec, params):
@@ -164,6 +175,143 @@ def light_in_tile(planes, rec, params):
     return inside
 
 
+def _to_tiles(img, tile_h, tile_w, value=0.0):
+    """(H, W) → (T, tile_h, tile_w), padded with `value`, tiles row-major."""
+    H, W = img.shape
+    nty, ntx = _pad_to(H, tile_h) // tile_h, _pad_to(W, tile_w) // tile_w
+    q = torch.nn.functional.pad(img, (0, ntx * tile_w - W,
+                                      0, nty * tile_h - H), value=value)
+    return q.reshape(nty, tile_h, ntx, tile_w).permute(0, 2, 1, 3) \
+        .reshape(nty * ntx, tile_h, tile_w)
+
+
+def tile_world_positions(depth, params, *, tile_h=32, tile_w=128):
+    """(dep, wx, wy, wz), each (T, tile_h, tile_w): every pixel's depth
+    and its world position unprojected from reverse-z depth through the
+    inverse view-projection (params as deferred_shade's, the band row
+    offset params[34] included), in kernel B3's arithmetic. Pixels past
+    the frame hold depth 0 (sky)."""
+    H, W = depth.shape
+    nty, ntx = _pad_to(H, tile_h) // tile_h, _pad_to(W, tile_w) // tile_w
+    dev = depth.device
+    p = params
+    ti = torch.arange(nty * ntx, device=dev)
+    tx0 = ((ti % ntx) * tile_w).to(torch.float32)[:, None, None]
+    ty0 = ((ti // ntx) * tile_h).to(torch.float32)[:, None, None]
+    px = torch.arange(tile_w, device=dev).to(torch.float32)[None, None, :] \
+        + tx0 + 0.5
+    py = torch.arange(tile_h, device=dev).to(torch.float32)[None, :, None] \
+        + ty0 + 0.5
+    py = py + p[34]
+    dep = _to_tiles(depth, tile_h, tile_w)
+    ndx = 2.0 * px / p[25] - 1.0
+    ndy = 1.0 - 2.0 * py / p[26]
+    wx = p[0] * ndx + p[1] * ndy + p[2] * dep + p[3]
+    wy = p[4] * ndx + p[5] * ndy + p[6] * dep + p[7]
+    wz = p[8] * ndx + p[9] * ndy + p[10] * dep + p[11]
+    ww = p[12] * ndx + p[13] * ndy + p[14] * dep + p[15]
+    inv_ww = 1.0 / torch.where(torch.abs(ww) > 1e-9, ww,
+                               torch.ones_like(ww))
+    return dep, wx * inv_ww, wy * inv_ww, wz * inv_ww
+
+
+def light_in_block(depth, light_table, tile_counts, params, *, tile_h=32,
+                   tile_w=128, rect=False):
+    """(T, tile_h // 16, tile_w // 16, S) bool, S = the longest list: the
+    listed lights each 16x16 block of kernel B3 walks, in plain PyTorch
+    and the kernel's arithmetic (for tests and measurement; the plain
+    version walks the reference's tile lists).
+
+    A block with no geometry pixel walks nothing. Otherwise a listed
+    light is kept unless (rect lights: always kept)
+    - it fails the reference's tile test (light_in_tile), or
+    - it lies outside one of the block's own sub-frustum side planes by
+      more than range * (1 + PLANE_MARGIN) + PLANE_MARGIN * |light - eye|_1,
+      or
+    - its range sphere misses the AABB of the block's geometry world
+      positions: the gap to the box, squared and summed in the body's
+      order, over max(range², 1e-9) is >= 1. Rounding is monotone, so
+      then every geometry pixel of the block has q >= 1 and win == 0."""
+    dep, wx, wy, wz = tile_world_positions(depth, params, tile_h=tile_h,
+                                           tile_w=tile_w)
+    nt = dep.shape[0]
+    ntx = _pad_to(depth.shape[1], tile_w) // tile_w
+    nby, nbx = tile_h // BLOCK, tile_w // BLOCK
+    dev = depth.device
+    counts = torch.clamp(tile_counts, max=light_table.shape[2])
+    ns = int(counts.max()) if nt else 0
+    geom = (dep > 0.0).reshape(nt, nby, BLOCK, nbx, BLOCK)
+
+    def blocks(v, fill, op):
+        v = torch.where(geom, v.reshape(geom.shape), fill)
+        return op(op(v, 4).values, 2).values          # (T, nby, nbx)
+
+    lo = [blocks(v, torch.inf, torch.min) for v in (wx, wy, wz)]
+    hi = [blocks(v, -torch.inf, torch.max) for v in (wx, wy, wz)]
+    has_geom = geom.any(4).any(2)
+    rec = light_table[:, :, :ns]                           # (T, F, S)
+    keep = (torch.arange(ns, device=dev)[None, :] < counts[:, None])
+    keep = (keep[:, None, None, :] & has_geom[..., None]) \
+        .expand(nt, nby, nbx, ns).clone()
+    if rect or ns == 0:
+        return keep
+    nty = nt // ntx
+    keep &= torch.stack([light_in_tile(tile_side_planes(params, nty, ntx,
+                                                        tile_h, tile_w),
+                                       rec[:, :, s], params)
+                         for s in range(ns)], 1)[:, None, None, :]
+    t = torch.arange(nt, device=dev)[:, None, None]
+    bx0 = ((t % ntx) * tile_w + torch.arange(nbx, device=dev) * BLOCK)
+    by0 = ((t // ntx) * tile_h
+           + torch.arange(nby, device=dev)[:, None] * BLOCK)
+    bx0, by0 = torch.broadcast_tensors(bx0, by0)
+    planes = _side_planes(params, bx0.to(torch.float32),
+                          by0.to(torch.float32) + params[34], BLOCK,
+                          BLOCK)                           # (T, nby, nbx, 4, 3)
+    l0, l1, l2, rng = (rec[:, k][:, None, None, :] for k in (0, 1, 2, 6))
+    lcx, lcy, lcz = l0 - params[31], l1 - params[32], l2 - params[33]
+    margin = PLANE_MARGIN * (rng + torch.abs(lcx) + torch.abs(lcy)
+                             + torch.abs(lcz))
+    for k in range(4):
+        pl = planes[..., k, :, None]
+        keep &= pl[..., 0, :] * lcx + pl[..., 1, :] * lcy + \
+            pl[..., 2, :] * lcz > -(rng + margin)
+
+    def gap(c, lo, hi):
+        lo, hi = lo[..., None], hi[..., None]
+        return torch.where(c > hi, c - hi,
+                           torch.where(c < lo, c - lo, torch.zeros_like(c)))
+
+    gx, gy, gz = gap(l0, lo[0], hi[0]), gap(l1, lo[1], hi[1]), \
+        gap(l2, lo[2], hi[2])
+    rng2 = torch.clamp(rng * rng, min=1e-9)
+    keep &= ~((gx * gx + gy * gy + gz * gz) / rng2 >= 1.0)
+    return keep
+
+
+def light_win(rec, wx, wy, wz, rect=False):
+    """win (T, th, tw): the range window of each tile's light record rows
+    rec (T, F) at the tiles' world positions (tile_world_positions), in
+    the body of _deferred_shade_plain's arithmetic (rect: from the closest
+    point of the rect). A pair with win == 0 adds +0.0: the pairs with
+    win > 0 are the ones B3's cull must keep (for tests and
+    measurement)."""
+    def d(k):
+        return rec[:, k][:, None, None]
+
+    dx, dy, dz = d(0) - wx, d(1) - wy, d(2) - wz
+    if rect:
+        qu = torch.clamp(-(dx * d(16) + dy * d(17) + dz * d(18)), -d(22),
+                         d(22))
+        qv = torch.clamp(-(dx * d(19) + dy * d(20) + dz * d(21)), -d(23),
+                         d(23))
+        dx = dx + qu * d(16) + qv * d(19)
+        dy = dy + qu * d(17) + qv * d(20)
+        dz = dz + qu * d(18) + qv * d(21)
+    q = (dx * dx + dy * dy + dz * dz) / torch.clamp(d(6) * d(6), min=1e-9)
+    return torch.clamp(1.0 - q * q, 0.0, 1.0)
+
+
 def _deferred_shade_plain(gbuffer, depth, light_table, tile_counts, params,
                           shadow=None, *, tile_h=32, tile_w=128, spot=True,
                           rect=False, clearcoat=True, anisotropy=False,
@@ -176,37 +324,17 @@ def _deferred_shade_plain(gbuffer, depth, light_table, tile_counts, params,
     _, H, W = gbuffer.shape
     nty, ntx = _pad_to(H, tile_h) // tile_h, _pad_to(W, tile_w) // tile_w
     nt = nty * ntx
-    dev = depth.device
     p = params
 
     def to_tiles(img, value=0.0):
-        q = torch.nn.functional.pad(img, (0, ntx * tile_w - W,
-                                          0, nty * tile_h - H), value=value)
-        return q.reshape(nty, tile_h, ntx, tile_w).permute(0, 2, 1, 3) \
-            .reshape(nt, tile_h, tile_w)
+        return _to_tiles(img, tile_h, tile_w, value)
 
     def g(k):
         return to_tiles(gbuffer[k])
 
-    ti = torch.arange(nt, device=dev)
-    tx0 = ((ti % ntx) * tile_w).to(torch.float32)[:, None, None]
-    ty0 = ((ti // ntx) * tile_h).to(torch.float32)[:, None, None]
-    px = torch.arange(tile_w, device=dev).to(torch.float32)[None, None, :] \
-        + tx0 + 0.5
-    py = torch.arange(tile_h, device=dev).to(torch.float32)[None, :, None] \
-        + ty0 + 0.5
-    py = py + p[34]
-    dep = to_tiles(depth)
+    dep, wx, wy, wz = tile_world_positions(depth, params, tile_h=tile_h,
+                                           tile_w=tile_w)
     geom = dep > 0.0
-    ndx = 2.0 * px / p[25] - 1.0
-    ndy = 1.0 - 2.0 * py / p[26]
-    wx = p[0] * ndx + p[1] * ndy + p[2] * dep + p[3]
-    wy = p[4] * ndx + p[5] * ndy + p[6] * dep + p[7]
-    wz = p[8] * ndx + p[9] * ndy + p[10] * dep + p[11]
-    ww = p[12] * ndx + p[13] * ndy + p[14] * dep + p[15]
-    inv_ww = 1.0 / torch.where(torch.abs(ww) > 1e-9, ww,
-                               torch.ones_like(ww))
-    wx, wy, wz = wx * inv_ww, wy * inv_ww, wz * inv_ww
 
     ar, ag, ab, aa = g(0), g(1), g(2), g(3)
     nx, ny, nz = g(4), g(5), g(6)

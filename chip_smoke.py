@@ -15,17 +15,21 @@ source, all started together), then:
 4. times B1 and B2 against their plain versions at the full-size shapes;
 5. renders the many_lights twin at the golden configuration (48 lights,
    256x144, 1 frame) against tests/goldens/lights_f1.png, holding B1 and
-   B2 (bit for bit) and the deferred shade B3 (rtol 1e-5, atol 1e-5) against
-   their plain versions on every call;
+   B2 (bit for bit) and the deferred shade B3 (rtol 1e-5, atol 1e-5, the
+   count of differing values printed) against their plain versions on
+   every call, with B3's cull counts;
 6. shades a small scene with spot and rect lights, clearcoat and a
-   non-default reflectance (the other B3 instantiations), B3 against plain;
+   non-default reflectance (the other B3 instantiations), and the same
+   inputs without rect (the culled spot instantiation), B3 against plain,
+   with B3's cull counts;
 7. runs the full-size many_lights frame (100,000 point lights, 1,024 cubes
    and the floor, 1280x720), times 20 frames with CUDA events, checks B1, B2
    and B3 were launched (B3 once a frame), that light_pair_overflow and the
    mesh pass's own tile overflow are 0;
 8. holds B1 and B2 (bit for bit) against their plain versions on every call
    of one full-size many_lights frame, and times B3 against its plain
-   version at that frame's shapes;
+   version at that frame's shapes, with B3's cull counts and its bound
+   (recounted, the old figure beside it);
 9. holds the tile sprite raster (B4) against its plain version, bit for
    bit, on the CPU test scenes moved to the card (f32 bilinear and
    nearest, bf16, rotated solid, a max_visible overflow, an overflowing
@@ -65,20 +69,25 @@ source, all started together), then:
    B1/B2/B3 against plain on every call;
 19. runs the full-size many_lights frame with a 4-band shade, times 20
    frames, checks B3 was launched 4 times a frame, holds each band's B3
-   call of one frame against plain (rtol/atol 1e-5), prints the overflows,
-   and checks the image equals the unsharded frame's;
+   call of one frame against plain (rtol/atol 1e-5) with its cull counts
+   (each band's row offset in params[34]), prints the overflows, and checks
+   the image equals the unsharded frame's;
 20. holds the per-tile triangle raster against its plain version, bit for
    bit, in all six instantiations (B7 corners, B8 planes and planes_gbuf,
-   scissor off and on) on the scene of tests/test_torch_tris.py;
+   scissor off and on) on the scene of tests/test_torch_tris.py with two
+   slivers added (SLIVER_CORNERS: their float edges read a pixel inside
+   past their AABB), with B7's cull counts;
 21. renders the many_cubes twin through the general route
    (`backend="xla"`, 300 cubes, 320x180, 3 frames) against
-   tests/goldens/cubes_f3.png, B7 against plain on every call;
+   tests/goldens/cubes_f3.png, B7 against plain on every call, with B7's
+   cull counts;
 22. renders the 3d_shapes twin (320x180, 1 frame) against
-   tests/goldens/shapes_f1.png, B7 against plain;
+   tests/goldens/shapes_f1.png, B7 against plain, with B7's cull counts;
 23. runs many_cubes 160k through the general route at 1280x720 (20 frames
    timed, B7 once a frame, overflows printed), times B7 against its plain
-   version at that frame's shapes, and runs 3d_shapes at 1280x720 (20
-   frames timed);
+   version at that frame's shapes, with B7's cull counts and its bound
+   (recounted, the old figure beside it), and runs 3d_shapes at 1280x720
+   (20 frames timed);
 24. calls raster_batched_legacy forward and deferred (a 19-plane G-buffer)
    on the 160k cubes' clip-space corners and normals at 1280x720
    (tile_h=16, max_per_tile=3072): B8 twice, each bit-equal to plain, the
@@ -89,7 +98,21 @@ a device): their work runs one shard after another.
 
 Each kernel's bound (the least time the card could take for the same work:
 the larger of its bytes over 3.35 TB/s and its FP32 operations over 67
-TFLOP/s, counted from this run's inputs) is printed beside its time.
+TFLOP/s, counted from this run's inputs: for B3 the light body over the
+contributing pairs, win > 0; for B7/B8 the edge and depth tests over the
+pairs inside the edges, and the record fields each triangle needs by what
+it does: its edges if listed, its depth if inside at some pixel, its shade
+if it wins one) is printed beside its time, with the old count (the
+reference's walk of every listed pair, whole records) beside it and B3's
+and B7's times before their redesign (BEFORE_REDESIGN_MS).
+
+B3's and B7's cull counts: the (pixel, light) or (pixel, triangle) pairs
+the reference's walk reaches, the pairs the kernel's per-CTA cull keeps
+(replayed by `shade.light_in_block`, `raster3d_tris.tri_in_block`: the
+same decisions in plain PyTorch, not read back from the kernel), the
+pairs that contribute (win > 0) or are inside the edges, and the pairs
+the cull drops that would have contributed or been inside, which must be
+0 (asserted).
 
 The last three lines of standard output are a JSON object of kernel
 results, the card's name and power limit (nvidia-smi), and the card's
@@ -142,6 +165,9 @@ FLOCK_FRAMES = 150         # bevymark frames that build the flock
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 FP32_FLOPS = 67e12             # H100 SXM, FP32 outside the tensor cores
 SHADE_TOL = dict(rtol=1e-5, atol=1e-5)
+# the kernels' times before their redesign (PERF.md §6: NVIDIA H100 80GB
+# HBM3, 700.00 W, the same phases of this script)
+BEFORE_REDESIGN_MS = {"B3": 2.0329, "B7": 1.8988}
 
 
 def log(*a):
@@ -302,8 +328,9 @@ def compare(kid, a, kw):
         torch.cuda.synchronize()
         err = float((ck - cp).abs().max())
         rel = float(((ck - cp).abs() / cp.abs().clamp(min=1e-6)).max())
+        nd = int((ck != cp).sum())
         torch.testing.assert_close(ck, cp, **SHADE_TOL)
-        return err, rel
+        return err, rel, nd
     dk, wk = kernel_fn(kid)(*a, **kw)
     dp, wp = plain_fn(kid)(*a, **kw)
     torch.cuda.synchronize()
@@ -379,6 +406,66 @@ def bound_b2(a, kw):
     return _bound(nbytes, flops)
 
 
+def work_b3(a, kw):
+    """(pixel, light) pairs of one B3 call, over its geometry pixels:
+    {"old": the reference's walk (every listed light that passes the tile
+    test), "kept": what the per-block cull keeps (shade.light_in_block's
+    plain replay of it), "contrib": the pairs with win > 0 among the old
+    walk, "dropped": those the cull drops (must be 0), "blocks": (block,
+    light) pairs kept / listed}. The kernel evaluates a light body for kept pairs with win >
+    0: "contrib" of them, since none is dropped."""
+    from bevy_tpu_torch.ops import shade
+    _, depth, table, counts, params, _ = a
+    th, tw = kw.get("tile_h", 32), kw.get("tile_w", 128)
+    rect = kw.get("rect", False)
+    keep = shade.light_in_block(depth, table, counts, params, tile_h=th,
+                                tile_w=tw, rect=rect)
+    dep, wx, wy, wz = shade.tile_world_positions(depth, params, tile_h=th,
+                                                 tile_w=tw)
+    nt, nby, nbx, ns = keep.shape
+    ntx = (depth.shape[1] + tw - 1) // tw
+    B = shade.BLOCK
+    geom = dep > 0
+    gblk = geom.reshape(nt, nby, B, nbx, B).sum((2, 4))
+    gtile = gblk.sum((1, 2))
+    sp = shade.tile_side_planes(params, nt // ntx, ntx, th, tw)
+    cnt = counts.clamp(max=table.shape[2])
+    n = dict(old=0, kept=0, contrib=0, dropped=0)
+    listed_blocks = 0
+    for s_ in range(ns):
+        rec = table[:, :, s_]
+        walked = s_ < cnt
+        if not rect:
+            walked = walked & shade.light_in_tile(sp, rec, params)
+        k = keep[..., s_]
+        lit = (shade.light_win(rec, wx, wy, wz, rect) > 0) & geom & \
+            walked[:, None, None]
+        kpx = k.repeat_interleave(B, 1).repeat_interleave(B, 2)
+        n["old"] += int((gtile * walked).sum())
+        n["kept"] += int((gblk * k).sum())
+        n["contrib"] += int(lit.sum())
+        n["dropped"] += int((lit & ~kpx).sum())
+        listed_blocks += int((s_ < cnt).sum()) * nby * nbx
+    n["blocks"] = (int(keep.sum()), listed_blocks)
+    return n
+
+
+def b3_cull_line(name, a, kw):
+    """Log B3's cull counts for one call and assert that no dropped pair
+    would have contributed."""
+    n = work_b3(a, kw)
+    log(f"B3 cull, {name}: (pixel, light) pairs the old walk reached "
+        f"{n['old']}, the block cull keeps {n['kept']} (replayed in plain "
+        f"torch by shade.light_in_block), contributing "
+        f"(win > 0) {n['contrib']}, dropped but contributing "
+        f"{n['dropped']}; (block, light) pairs kept {n['blocks'][0]} of "
+        f"{n['blocks'][1]} listed")
+    if n["dropped"]:
+        raise AssertionError(f"B3's cull dropped {n['dropped']} "
+                             f"contributing pairs ({name})")
+    return n
+
+
 def bound_b3(a, kw):
     """B3: the planes its variant reads, depth, the shadow plane if any,
     the light records of every listed light, and 4 output planes, once
@@ -392,44 +479,39 @@ def bound_b3(a, kw):
       reflectance, +5 specular tint);
     - per listed (tile, light), the terms of the light alone (range²): 2
       (+1 rect);
-    - per (geometry pixel, listed light that passes the tile side-plane
-      test), the light body: 94 (+11 spot, +33 rect, +21 clearcoat, +33
-      anisotropy)."""
-    from bevy_tpu_torch.ops import shade
+    - per contributing (geometry pixel, listed light) pair (win > 0 —
+      what these inputs need: a pair with win == 0 adds +0.0), the light
+      body: 94 (+11 spot, +33 rect, +21 clearcoat, +33 anisotropy).
+    Returns (ms, bound by, text) with the old figure — the body over every
+    pair the reference's walk reaches (the tile test's survivors) — and
+    the pair counts in the text."""
     gbuf, depth, table, counts, params, shadow = a
     v = {k: kw.get(k, d) for k, d in (("spot", True), ("rect", False),
                                       ("clearcoat", True),
                                       ("anisotropy", False),
                                       ("reflectance", False),
                                       ("specular_tint", False))}
-    th, tw = kw.get("tile_h", 32), kw.get("tile_w", 128)
     H, W = depth.shape
-    nty, ntx = (H + th - 1) // th, (W + tw - 1) // tw
     nt, nf, mpt = table.shape
     planes = 12 + 2 * v["clearcoat"] + 4 * v["anisotropy"] + \
         v["reflectance"] + 3 * v["specular_tint"]
     cnt = counts.clamp(max=mpt)
     nbytes = 4 * H * W * (planes + 1 + (shadow is not None) + 4) + \
         4 * nf * int(cnt.sum()) + 4 * nt + 160
-    pad = torch.nn.functional.pad(depth, (0, ntx * tw - W, 0, nty * th - H))
-    geom = (pad.reshape(nty, th, ntx, tw) > 0).sum((1, 3)).reshape(nt)
-    if v["rect"]:
-        nlit = cnt
-    else:
-        sp = shade.tile_side_planes(params, nty, ntx, th, tw)
-        nlit = torch.zeros(nt, dtype=torch.int64, device=depth.device)
-        for s in range(int(cnt.max())):
-            nlit += (s < cnt) & shade.light_in_tile(sp, table[:, :, s],
-                                                    params)
     body = 94 + 11 * v["spot"] + 33 * v["rect"] + 21 * v["clearcoat"] + \
         33 * v["anisotropy"]
     setup = 158 + 26 * v["clearcoat"] + 81 * v["anisotropy"] + \
         2 * v["reflectance"] + 5 * v["specular_tint"]
     per_light = 2 + v["rect"]
-    evals = int((geom * nlit).sum())
-    ops = evals * body + int(geom.sum()) * setup + \
-        int(cnt.sum()) * per_light
-    return _bound(nbytes, ops) + (evals,)
+    n = b3_cull_line("full size", a, kw)
+    base = int((depth > 0).sum()) * setup + int(cnt.sum()) * per_light
+    ms, by = _bound(nbytes, n["contrib"] * body + base)
+    old_ms, old_by = _bound(nbytes, n["old"] * body + base)
+    return ms, by, (f"recounted over {n['contrib']} contributing (pixel, "
+                    f"light) pairs; the old count, over the {n['old']} "
+                    f"pairs the reference walks, {old_ms:.4f} ms "
+                    f"({old_by}); the block cull keeps {n['kept']} "
+                    f"(plain replay)")
 
 
 # B4 / B5 operation counts, FP32, from csrc/sprite_tiles.cu and
@@ -648,8 +730,8 @@ def library_b6(a, kw):
 # - per pixel: its centre (2) and, with the scissor, its test (4);
 # - per (tile, listed triangle), corners only: the three edge vectors
 #   (cx-bx, cy-by, ...: 6 sub), once a triangle as the reference computes
-#   them (csrc/tri_raster.cu stages them with the records);
-# - per (pixel, listed triangle): the edge tests (corners: 3 x (2 sub,
+#   them (csrc/tri_raster.cu stages them once a record);
+# - per (pixel, triangle) pair tested: the edge tests (corners: 3 x (2 sub,
 #   2 mul, 1 sub) + 3 compares = 18; planes: 3 x (2 mul, 2 add, compare)
 #   = 15);
 # - per such pair inside the edges: the depth (corners: 3 mul for the
@@ -661,9 +743,10 @@ def library_b6(a, kw):
 #   channels; planes_gbuf 30: the normal and its normalisation). The
 #   kernel shades every pair that passes the depth test, the plain version
 #   only the winner: the same bits.
-# Walking every listed pair is the reference's algorithm: a pixel that
-# visited only the triangles covering it would skip most of the walk
-# (work_tris counts both).
+# The bound charges what these inputs need: the edge tests and the depth
+# over the pairs inside the edges, the edges once a listed triangle and the
+# shade once a covered pixel. The reference's walk tests every listed pair
+# (the old count; work_tris counts both, and what B7's cull keeps).
 TRI_OPS = dict(pixel=2, scissor=4, edges_corners=6, edges_planes=0,
                walk_corners=18, walk_planes=15, inside_corners=9,
                inside_planes=5, shade_corners=50, shade_planes=46,
@@ -671,12 +754,19 @@ TRI_OPS = dict(pixel=2, scissor=4, edges_corners=6, edges_planes=0,
 
 
 def work_tris(a, kw):
-    """([walked, inside, passing, covered], live pixels) of one B7/B8 call:
-    (pixel, triangle) pairs walked, inside the edges and passing the depth
-    test, and pixels some triangle took. Each in-frame pixel (inside the
-    scissor, when one is given) walks its tile's list in order, as the
-    kernel does (the plain version's inside and depth tests, with
-    counters)."""
+    """Counts of one B7/B8 call, as a dict: (pixel, triangle) pairs
+    "walked" by the reference (every listed pair), "inside" the edges,
+    "passing" the depth test; "covered" pixels (some triangle took them);
+    "live" pixels; distinct triangles "tris_listed" (in some tile's list),
+    "tris_inside" (inside the edges at some live pixel) and "tris_won" (the
+    last taker of some pixel). Each in-frame pixel (inside the scissor,
+    when one is given) walks its tile's list in order, as the plain
+    version does. For the corners layout also B7's cull, replayed in
+    plain torch (raster3d_tris.tri_in_block at the warps' WARP_ROWS
+    granularity, which implies the CTA's block test): "kept", the pairs
+    B7 walks, and "dropped", the pairs it drops that are inside the edges
+    (must be 0)."""
+    from bevy_tpu_torch.ops import raster3d_tris as rt
     fb, depth, table, pair_tri, starts, counts, light = a[:7]
     scissor = a[7] if len(a) > 7 else kw.get("scissor")
     layout = kw.get("layout", "corners")
@@ -696,12 +786,19 @@ def work_tris(a, kw):
         live = live & (px >= x0) & (py >= y0) & (px < x1) & (py < y1)
     dep = torch.nn.functional.pad(depth, (0, ntx * tw - W, 0, nty * th - H)) \
         .reshape(nty, th, ntx, tw).permute(0, 2, 1, 3).reshape(-1, th, tw)
-    n = [0, 0, 0]
-    covered = torch.zeros_like(live)
+    cull = layout == "corners"
+    if cull:
+        keep = rt.tri_in_block(table, pair_tri, starts, counts, W,
+                               tile_h=th, tile_w=tw, block_h=rt.WARP_ROWS)
+    n = dict(walked=0, inside=0, passing=0, kept=0, dropped=0)
+    won = torch.full(live.shape, -1, dtype=torch.int64, device=dev)
+    listed = torch.zeros(table.shape[0], dtype=torch.bool, device=dev)
+    inside_tris = torch.zeros_like(listed)
     for s_ in range(int(counts.max())):
         on = live & (s_ < counts)[:, None, None]
         slot = torch.clamp(starts + s_, max=pair_tri.shape[0] - 1).long()
-        d = table[pair_tri[slot].long()][:, :, None, None].unbind(1)
+        tri = pair_tri[slot].long()
+        d = table[tri][:, :, None, None].unbind(1)
         if layout == "corners":
             e = [(d[4] - d[2]) * (py - d[3]) - (d[5] - d[3]) * (px - d[2]),
                  (d[0] - d[4]) * (py - d[5]) - (d[1] - d[5]) * (px - d[4]),
@@ -717,42 +814,91 @@ def work_tris(a, kw):
         hit = on & inside
         passing = hit & (z > dep)
         dep = torch.where(passing, z, dep)
-        n[0] += int(on.sum())
-        n[1] += int(hit.sum())
-        n[2] += int(passing.sum())
-        covered |= passing
-    return n + [int(covered.sum())], int(live.sum())
+        won = torch.where(passing, tri[:, None, None], won)
+        listed[tri[s_ < counts]] = True
+        inside_tris[tri[hit.any(2).any(1)]] = True
+        n["walked"] += int(on.sum())
+        n["inside"] += int(hit.sum())
+        n["passing"] += int(passing.sum())
+        if cull:
+            kpx = keep[..., s_].repeat_interleave(rt.WARP_ROWS, 1) \
+                .repeat_interleave(rt.BLOCK, 2)
+            n["kept"] += int((on & kpx).sum())
+            n["dropped"] += int((hit & ~kpx).sum())
+    n["covered"] = int((won >= 0).sum())
+    n["live"] = int(live.sum())
+    n["tris_listed"] = int(listed.sum())
+    n["tris_inside"] = int(inside_tris.sum())
+    n["tris_won"] = int(torch.unique(won[won >= 0]).numel())
+    return n
+
+
+def b7_cull_line(name, n):
+    """Log B7's cull counts (work_tris) for one call and assert that no
+    dropped pair was inside the edges."""
+    log(f"B7 cull, {name}: (pixel, triangle) pairs the old walk reached "
+        f"{n['walked']}, the cull keeps {n['kept']} (replayed in plain "
+        f"torch by raster3d_tris.tri_in_block) "
+        f"({n['kept'] / max(n['walked'], 1):.2%}), inside the edges "
+        f"{n['inside']}, dropped but inside {n['dropped']}")
+    if n["dropped"]:
+        raise AssertionError(f"B7's cull dropped {n['dropped']} pairs "
+                             f"inside the edges ({name})")
+
+
+# The record fields the function needs of a triangle, by what it does
+# (floats; the rest of the 40-float row is padding): the edges of every
+# listed one (corners 0:6; planes 0:9), the depth of one inside the edges
+# at some pixel (corners 6:9 and 1/area2 at 12; planes 9:12), and the
+# shade of one that wins a pixel (corners 9:12 and 13:29; planes 12:31,
+# planes_gbuf 12:33).
+TRI_FIELDS = dict(corners=(6, 4, 19), planes=(9, 3, 19),
+                  planes_gbuf=(9, 3, 21))
 
 
 def bound_tris(a, kw):
     """B7 / B8: the framebuffer (or every G-buffer plane) and depth read
-    and written once, each listed triangle's record fields once (29 or 33
-    floats), each listed pair index, the tile runs and the light vector;
+    and written once, each listed pair index, the tile runs, the light
+    vector and the record fields TRI_FIELDS by what each triangle does
+    (work_tris: listed, inside at some pixel, winning some pixel);
     operations TRI_OPS over the listed (tile, triangle) pairs and
-    work_tris's counts."""
+    work_tris's counts: the edge tests and the depth over the pairs inside
+    the edges. Returns (ms, bound by, text) with the old figures (the
+    edge tests over every listed pair; 29 or 33 floats a listed record)
+    and the counts in the text."""
     fb, depth, table, pair_tri, starts, counts = a[:6]
     layout = kw.get("layout", "corners")
     scissor = a[7] if len(a) > 7 else kw.get("scissor")
-    (walked, inside, passing, covered), npx = work_tris(a, kw)
-    listed = torch.zeros(pair_tri.shape[0], dtype=torch.bool,
-                         device=depth.device)
-    for st_, ct in zip(starts.tolist(), counts.tolist()):
-        listed[st_:st_ + ct] = True
-    ids = torch.unique(pair_tri[listed])
-    fields = 29 if layout == "corners" else 33
-    nbytes = 8 * (fb.numel() + depth.numel()) + 4 * fields * ids.numel() + \
-        4 * int(counts.sum()) + 8 * counts.numel() + 64
+    n = work_tris(a, kw)
+    if layout == "corners":
+        b7_cull_line("full size", n)
+    f_edge, f_depth, f_shade = TRI_FIELDS[layout]
+    other = 8 * (fb.numel() + depth.numel()) + 4 * int(counts.sum()) + \
+        8 * counts.numel() + 64
+    nbytes = other + 4 * (f_edge * n["tris_listed"] +
+                          f_depth * n["tris_inside"] +
+                          f_shade * n["tris_won"])
+    old_bytes = other + 4 * (29 if layout == "corners" else 33) * \
+        n["tris_listed"]
     kind = "corners" if layout == "corners" else "planes"
     o = TRI_OPS
-    ops = (o["pixel"] + o["scissor"] * (scissor is not None)) * npx + \
-        o["edges_" + kind] * int(counts.sum()) + \
-        o["walk_" + kind] * walked + o["inside_" + kind] * inside + \
-        o["shade_" + layout] * covered
-    return _bound(nbytes, ops) + (f"{walked} (pixel, triangle) pairs "
-                                  f"walked, {inside} inside ("
-                                  f"{inside / max(walked, 1):.2%}), "
-                                  f"{passing} passing, {covered} pixels "
-                                  f"covered",)
+    base = (o["pixel"] + o["scissor"] * (scissor is not None)) * n["live"] \
+        + o["edges_" + kind] * int(counts.sum()) + \
+        o["inside_" + kind] * n["inside"] + o["shade_" + layout] * n["covered"]
+    ms, by = _bound(nbytes, base + o["walk_" + kind] * n["inside"])
+    old_ms, old_by = _bound(old_bytes, base + o["walk_" + kind] * n["walked"])
+    mid_ms, mid_by = _bound(old_bytes, base + o["walk_" + kind] * n["inside"])
+    return ms, by, (f"the old count, every walked pair and whole records, "
+                    f"{old_ms:.4f} ms ({old_by}); operations recounted but "
+                    f"whole records {mid_ms:.4f} ms ({mid_by}); bytes "
+                    f"{nbytes} (whole records {old_bytes}); triangles "
+                    f"listed {n['tris_listed']}, inside at a pixel "
+                    f"{n['tris_inside']}, winning a pixel {n['tris_won']}; "
+                    f"{n['walked']} (pixel, triangle) pairs walked by the "
+                    f"reference, {n['inside']} inside ("
+                    f"{n['inside'] / max(n['walked'], 1):.2%}), "
+                    f"{n['passing']} passing, {n['covered']} pixels "
+                    f"covered")
 
 
 BOUNDS = {"B1": bound_b1, "B2": bound_b2, "B3": bound_b3, "B4": bound_b4,
@@ -847,6 +993,25 @@ def timed_frames(app, n):
     return start.elapsed_time(end) / n, launches, stats, covered
 
 
+def device_ms(fn, reps=5):
+    """(ms a call, [(kernel name, ms a call), ...] largest first): the
+    device time of the CUDA kernels and copies `fn` launches, summed, from
+    torch.profiler over `reps` calls; (None, []) when the profiler sees
+    no device time. Unlike CUDA events around the calls, it leaves out
+    the host's time between launches."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    rows = [(e.key, e.self_device_time_total / reps / 1e3)
+            for e in prof.key_averages() if e.self_device_time_total > 0]
+    rows.sort(key=lambda r: -r[1])
+    return (sum(r[1] for r in rows) if rows else None), rows
+
+
 def time_kernel(kid, a, kw, launches, err, library=None):
     """Kernel vs plain time (CUDA events, 20 and 3 launches), the time of
     `library` (one PyTorch call computing the same function, 20 calls)
@@ -857,13 +1022,18 @@ def time_kernel(kid, a, kw, launches, err, library=None):
     lib_ms = None if library is None else cuda_ms(library, 20)
     b = BOUNDS[kid](a, kw)
     b_ms, by = b[0], b[1]
-    extra = "" if len(b) < 3 else (f", {b[2]}" if isinstance(b[2], str)
-                                    else f", {b[2]} (pixel, light) "
-                                         f"evaluations")
+    extra = "" if len(b) < 3 else f"; {b[2]}"
     lib = "" if lib_ms is None else f", library call {lib_ms:.4f} ms"
-    log(f"{kid} {KERNELS[kid][0]} at full size: kernel {k_ms:.4f} ms, "
+    was = f" (before the redesign: {BEFORE_REDESIGN_MS[kid]} ms)" \
+        if kid in BEFORE_REDESIGN_MS else ""
+    log(f"{kid} {KERNELS[kid][0]} at full size: kernel {k_ms:.4f} ms{was}, "
         f"plain {p_ms:.4f} ms{lib}, bound {b_ms:.4f} ms ({by}{extra}), "
         f"{b_ms / k_ms:.1%} of the bound")
+    d_ms, rows = device_ms(lambda: kernel_fn(kid)(*a, **kw))
+    log(f"{kid} device time a call (torch.profiler, 5 calls): "
+        + ("not measured (no device time in the trace)" if d_ms is None
+           else f"{d_ms:.4f} ms; " + "; ".join(
+               f"{name[:60]} {ms:.4f} ms" for name, ms in rows[:3])))
     name, source, replaces = KERNELS[kid]
     if kid in ("B7", "B8"):          # one wrapper, two kernels
         name = f"{name}(layout={kw['layout']})"
@@ -1197,15 +1367,57 @@ def tri_scene(device, seed=0):
             for k, v in out.items()}
 
 
+# Two slivers in tri_scene's 320x180 frame (screen corners ax ay bx by cx
+# cy, |area2| 5e-5 and 2e-4 px^2, each across a 16-px block edge) whose
+# float edges read a pixel centre inside well past their AABB, in a tile
+# they are listed in: the first (106.5, 59.5), 18 px left of its AABB in
+# another 16x16 block; the second (239.5, 25.5), in its block but two
+# row pairs below. Only B7's sliver rule keeps them there.
+SLIVER_CORNERS = np.array(
+    [[138.91505, 49.391125, 177.12376, 37.475452, 124.366, 53.928356],
+     [233.24269, -10.04426, 229.31094, -32.37828, 238.75624, 21.27512]],
+    np.float32)
+SLIVER_INSIDE = ((106.5, 59.5), (239.5, 25.5))
+
+
+def with_slivers(setup, s):
+    """triangle_setup_corners' `setup` and tri_scene's `s` with the
+    SLIVER_CORNERS triangles appended (NDC depth 0.9, w 1, normal +z,
+    their own colours)."""
+    dev = setup["corners"].device
+    c = torch.tensor(SLIVER_CORNERS, device=dev).reshape(-1, 3, 2)
+    k = c.shape[0]
+    ax, ay, bx, by, cx, cy = c.reshape(k, 6).unbind(1)
+    area2 = (bx - ax) * (cy - ay) - (by - ay) * (cx - ax)
+    assert bool((area2 < -1e-12).all())
+    aabb = torch.stack([c[..., 0].amin(1), c[..., 1].amin(1),
+                        c[..., 0].amax(1), c[..., 1].amax(1)], 1)
+    add = dict(corners=c, depth=torch.full((k, 3), 0.9, device=dev),
+               inv_w=torch.ones((k, 3), device=dev), area2=area2,
+               valid=torch.ones(k, dtype=torch.bool, device=dev), aabb=aabb)
+    setup = {n: torch.cat([v, add[n]]) for n, v in setup.items()}
+    nrm = torch.zeros((k, 3, 3), device=dev)
+    nrm[..., 2] = 1.0
+    add = dict(normals=nrm, colors=torch.tensor(
+        [[0.9, 0.2, 0.2, 0.03125], [0.2, 0.9, 0.2, 0.0625]], device=dev),
+        emissive=torch.zeros((k, 3), device=dev),
+        metallic=torch.full((k,), 0.5, device=dev),
+        roughness=torch.full((k,), 0.5, device=dev))
+    return setup, {n: torch.cat([v, add[n]]) if n in add else v
+                   for n, v in s.items()}
+
+
 def tri_scene_calls(dev):
     """The six raster_tris instantiations (layout x scissor) on tri_scene
-    moved to `dev`: a list of (args, kwargs), binned with bin_tris."""
+    with_slivers, moved to `dev`: a list of (args, kwargs), binned with
+    bin_tris."""
     from bevy_tpu_torch.ops import raster3d as r3
     from bevy_tpu_torch.ops import raster3d_tris as rt
     s = tri_scene(dev)
     H, W = s["depth"].shape
     active = torch.ones(s["clip"].shape[0], dtype=torch.bool, device=dev)
-    setup = r3.triangle_setup_corners(s["clip"], active, W, H)
+    setup, s = with_slivers(r3.triangle_setup_corners(s["clip"], active,
+                                                      W, H), s)
     pair_tri, starts, counts, _ = rt.bin_tris(setup["valid"], setup["aabb"],
                                               H, W, **TRI_KW)
     tables = {"corners": rt.pack_tri_table(setup, s["normals"], s["colors"],
@@ -1406,7 +1618,9 @@ def sharded_lights_phases(dev, n, smi, golden_img, full_img):
         err = compare("B3", a, kw)
         log(f"B3 vs plain, full-size band at row {int(a[4][34])} "
             f"({a[0].shape[1]} rows, F={a[2].shape[1]}, lights listed "
-            f"{int(a[3].sum())}): max abs err {err[0]}, max rel err {err[1]}")
+            f"{int(a[3].sum())}): max abs err {err[0]}, max rel err "
+            f"{err[1]}, {err[2]} values differ")
+        b3_cull_line(f"full-size band at row {int(a[4][34])}", a, kw)
     nd, mx = image_diff(full_img, frame_image(app))
     log(f"launches in those {n} frames: B1 {launches['B1']}, B2 "
         f"{launches['B2']}, B3 {launches['B3']} (predicted "
@@ -1498,9 +1712,11 @@ def tri_phases(dev, n, smi, results):
     for a, kw in tri_scene_calls(dev):
         kid = kernel_id(kernel_fn("B7"), kw)
         err = compare(kid, a, kw)
-        log(f"{kid} vs plain, test scene "
-            f"({kw['layout']}, scissor {'on' if a[7] else 'off'}): "
-            f"bit-equal (max abs err {err})")
+        name = f"test scene ({kw['layout']}, scissor " \
+            f"{'on' if a[7] else 'off'})"
+        log(f"{kid} vs plain, {name}: bit-equal (max abs err {err})")
+        if kid == "B7":
+            b7_cull_line(name, work_tris(a, kw))
 
     # -- 21: the cubes_f3 golden through backend="xla" --------------------
     app = torch_many_cubes.build_app(n_cubes=300, width=320, height=180,
@@ -1513,6 +1729,8 @@ def tri_phases(dev, n, smi, results):
         raise AssertionError(f"cubes_f3 called B7 {len(errs)} times")
     log(f"B7 vs plain, cubes_f3 scene: {len(errs)} calls bit-equal (max abs "
         f"err {max(errs)})")
+    for i, (a, kw) in enumerate(rec.calls["B7"]):
+        b7_cull_line(f"cubes_f3 scene, frame {i + 1}", work_tris(a, kw))
     check_golden(frame_image(app), CUBES_XLA_GOLDEN)
     check_stats(app.world.state, ("pair_overflow", "tile_overflow"))
 
@@ -1525,6 +1743,7 @@ def tri_phases(dev, n, smi, results):
     if len(errs) != 1:
         raise AssertionError(f"shapes_f1 called B7 {len(errs)} times")
     log(f"B7 vs plain, shapes_f1 scene: bit-equal (max abs err {errs[0]})")
+    b7_cull_line("shapes_f1 scene", work_tris(*rec.calls["B7"][0]))
     check_golden(frame_image(app), SHAPES_GOLDEN)
     del app, rec
 
@@ -1643,24 +1862,26 @@ def main():
     log(f"kernel build: {time.perf_counter() - t0:.2f} s "
         f"(nvcc {_cuda._Loaded.build_seconds} s, dir {_cuda.build_dir()})")
     entry = None
-    regs = {}
+    regs, spilled = {}, []
     for ln in _cuda._Loaded.ptxas_log.splitlines():
-        if "Compiling entry" in ln:
-            entry = ln.split("'")[1]
-        elif "registers" in ln and entry is not None:
-            kind = next((k for k in ("splat_windows", "merge_windows",
-                                     "decode_keys",
-                                     "init_keys", "stream_tiles",
-                                     "sprite_tiles", "sprite_splat",
-                                     "tri_raster", "shade")
-                         if k in entry), entry)
+        if "Compiling entry" in ln or "Function properties for" in ln:
+            entry = ln.split("'")[1] if "'" in ln else ln.split()[-1]
+        kind = None if entry is None else next(
+            (k for k in ("splat_windows", "merge_windows", "decode_keys",
+                         "init_keys", "stream_tiles", "sprite_tiles",
+                         "sprite_splat", "tri_corners", "tri_planes",
+                         "shade") if k in entry), entry)
+        if "registers" in ln and kind is not None:
             regs.setdefault(kind, []).append(
                 int(ln.split("Used ")[1].split()[0]))
+        m = re.search(r"(\d+) bytes spill stores", ln)
+        if m and int(m.group(1)) > 0:
+            spilled.append(f"{entry} ({m.group(1)} bytes)")
     for kind, r in regs.items():
         log(f"  ptxas: {kind}: {len(r)} entries, {min(r)}-{max(r)} "
             f"registers")
-    spills = re.findall(r"(\d+) bytes spill stores", _cuda._Loaded.ptxas_log)
-    log(f"  ptxas: {sum(int(x) > 0 for x in spills)} entries spill")
+    log(f"  ptxas: {len(spilled)} functions spill"
+        + "".join(f"\n    {e}" for e in spilled))
 
     # -- kernels vs plain, golden scene and near-plane scene ------------
     golden_app = torch_many_cubes.build_app(
@@ -1737,7 +1958,10 @@ def main():
         if kid == "B3":
             log(f"B3 vs plain, lights golden scene: {len(errs)} calls within "
                 f"rtol/atol 1e-5 (max abs err {max(e[0] for e in errs)}, max "
-                f"rel err {max(e[1] for e in errs)})")
+                f"rel err {max(e[1] for e in errs)}, "
+                f"{sum(e[2] for e in errs)} values differ)")
+            for a, kw in rec_lg.calls[kid]:
+                b3_cull_line("lights golden scene", a, kw)
         else:
             log(f"{kid} vs plain, lights golden scene: {len(errs)} calls "
                 f"bit-equal (max abs err {max(errs)})")
@@ -1756,10 +1980,14 @@ def main():
               if kw.get(k)]
         if len(on) != 4:
             raise AssertionError(f"variants scene shaded with only {on}")
-        err = compare("B3", a, kw)
-        log(f"B3 vs plain, variants scene ({'+'.join(on)}, F="
-            f"{a[2].shape[1]}): within rtol/atol 1e-5 (max abs err "
-            f"{err[0]}, max rel err {err[1]})")
+        # and the culled instantiation of the same flags without rect
+        for kw_ in (kw, dict(kw, rect=False)):
+            on_ = [k for k in on if kw_.get(k)]
+            err = compare("B3", a, kw_)
+            log(f"B3 vs plain, variants scene ({'+'.join(on_)}, F="
+                f"{a[2].shape[1]}): within rtol/atol 1e-5 (max abs err "
+                f"{err[0]}, max rel err {err[1]}, {err[2]} values differ)")
+            b3_cull_line(f"variants scene ({'+'.join(on_)})", a, kw_)
     del lapp, vapp, rec_lg, rec_v
 
     # -- many_lights at full size: 100k lights, 1280x720 ----------------
@@ -1794,7 +2022,8 @@ def main():
             f"bit-equal (max abs err {max(errs)})")
     a, kw = rec_full.calls["B3"][-1]
     err = compare("B3", a, kw)
-    log(f"B3 at full size: max abs err {err[0]}, max rel err {err[1]} "
+    log(f"B3 at full size: max abs err {err[0]}, max rel err {err[1]}, "
+        f"{err[2]} values differ "
         f"(F={a[2].shape[1]}, mpt={a[2].shape[2]}, lights listed "
         f"{int(a[3].sum())})")
     results["B3"] = time_kernel("B3", a, kw, launches["B3"], err[0])
