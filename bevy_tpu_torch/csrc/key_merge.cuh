@@ -34,10 +34,15 @@ __device__ __forceinline__ long long make_key(float z, unsigned int low) {
   return (long long)(hi | (unsigned long long)low);
 }
 
+// key[i] = the incoming depth's key; where `neg` is given (B1), also
+// *neg = 1 if a depth is below 0 (*neg zeroed before)
 __global__ void init_keys(const float* __restrict__ depth,
-                          long long* __restrict__ key, int n) {
+                          long long* __restrict__ key, int n,
+                          int* __restrict__ neg) {
   int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < n) key[i] = make_key(depth[i], LOW_INIT);
+  if (i >= n) return;
+  key[i] = make_key(depth[i], LOW_INIT);
+  if (neg != nullptr && depth[i] < 0.0f) *neg = 1;
 }
 
 }  // namespace

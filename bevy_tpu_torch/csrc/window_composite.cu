@@ -97,7 +97,7 @@ extern "C" int bt_window_composite(const float* depth, const float* winner,
   cudaStream_t st = (cudaStream_t)stream;
   const int n = H * W;
   const int pix_blocks = (n + THREADS - 1) / THREADS;
-  init_keys<<<pix_blocks, THREADS, 0, st>>>(depth, key, n);
+  init_keys<<<pix_blocks, THREADS, 0, st>>>(depth, key, n, nullptr);
   if (nwin > 0)
     merge_windows<<<nwin, THREADS, 0, st>>>(depth, windows, meta, wvalid,
                                             win_h, H, W, key);

@@ -124,6 +124,9 @@ def library():
     return lib
 
 
+INVALID_VALUE = 1  # cudaErrorInvalidValue: a shape the C side refuses
+
+
 def check(err: int, name: str):
     if err != 0:
         msg = library().bt_error_string(err).decode()

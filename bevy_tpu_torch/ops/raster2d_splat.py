@@ -12,7 +12,9 @@ the instanced alpha-blended sprite draw of
   list keeps the global front-to-back window order.
 - `sprite_splat`: kernel B5 (`csrc/sprite_splat.cu`, replacing
   `_splat_kernel`) on CUDA tensors; its plain PyTorch version
-  `_sprite_splat_plain` on CPU tensors.
+  `_sprite_splat_plain` on CPU tensors. The kernel walks, per warp (one
+  row of 32 columns), only the windows that can cover a pixel of it;
+  `sprite_in_warp` makes the same decisions in plain PyTorch.
 The two together are the port of the JAX package's
 `raster_sprites_splat` (render/sprite.py calls them).
 
@@ -153,6 +155,40 @@ def sample_splat(atlas, d, lx, ly, bilinear, bf16, alpha_only):
     return [None, None, None, out[0]] if alpha_only else out
 
 
+WARP_W = 32       # kernel B5's warp: one row of 32 columns
+
+
+def sprite_in_warp(d, wy0, x0, y, *, win_h, rotated):
+    """Which (window, warp) pairs kernel B5 walks, in plain PyTorch (for
+    tests and measurement; the plain version walks every listed window at
+    every pixel of its block). d: the windows' sprite rows as 17
+    broadcasting tensors, wy0 their top rows; x0 the warp's first column
+    (it covers x0 .. x0 + 31) and y its row, int tensors broadcasting
+    against them.
+
+    A window is kept iff its rows hold y and, in the walk's arithmetic at
+    the segment's end centres pxa, pxb: unrotated, |py - cy| <= hy and
+    neither pxa - cx > hx nor pxb - cx < -hx; rotated, neither local
+    coordinate lies past the same side of [-h, h] at both ends. Each is
+    monotone in px along the row (rounding is monotone), so a dropped
+    window covers no pixel of the warp (csrc/sprite_splat.cu)."""
+    pxa = x0.to(torch.float32) + 0.5
+    pxb = (x0 + (WARP_W - 1)).to(torch.float32) + 0.5
+    py = y.to(torch.float32) + 0.5
+    cx, cy, hx, hy = d[0], d[1], d[2], d[3]
+    rows = (y >= wy0) & (y < wy0 + win_h)
+    if rotated:
+        cs, sn = d[4], d[5]
+        kx, ky = cs * cx + sn * cy, sn * cx - cs * cy
+        lxa, lxb = (cs * pxa - kx) + sn * py, (cs * pxb - kx) + sn * py
+        lya, lyb = (-sn * pxa + ky) + cs * py, (-sn * pxb + ky) + cs * py
+        miss = ((lxa > hx) & (lxb > hx)) | ((lxa < -hx) & (lxb < -hx)) | \
+            ((lya > hy) & (lyb > hy)) | ((lya < -hy) & (lyb < -hy))
+        return rows & ~miss
+    return rows & (torch.abs(py - cy) <= hy) & ~(pxa - cx > hx) & \
+        ~(pxb - cx < -hx)
+
+
 def _sprite_splat_plain(fb, pk, win, blk_win, blk_start, blk_count, atlas,
                         *, win_h=40, bilinear=True, bf16=False,
                         rotated=True, alpha_only=False):
@@ -238,8 +274,9 @@ def sprite_splat(fb, pk, win, blk_win, blk_start, blk_count, atlas, *,
     f32 planar. Returns the new framebuffer (4, H, W).
 
     CPU tensors run the plain PyTorch version; CUDA tensors launch
-    `csrc/sprite_splat.cu` (one CTA of 128 x 8 threads owns each 8-row
-    block of a 128-column strip and walks its windows in order)."""
+    `csrc/sprite_splat.cu` (four CTAs of 32 x 8 threads share each 8-row
+    block of a 128-column strip; each warp walks the block's windows in
+    order, culled to those `sprite_in_warp` keeps: the same bits)."""
     kw = dict(win_h=win_h, bilinear=bilinear, bf16=bf16, rotated=rotated,
               alpha_only=alpha_only)
     dev = _cuda.call_device(fb, pk, win, blk_win, blk_start, blk_count,

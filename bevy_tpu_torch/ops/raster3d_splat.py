@@ -10,7 +10,9 @@ bevy's GPU-driven meshlet raster, `bevy_pbr/src/meshlet/`).
    stride 16).
 3. `fused_eval_composite`: evaluates every window's records and merges
    depth + winner id into the framebuffer (kernel B1,
-   `csrc/splat_raster.cu`, replacing `_fused_kernel`).
+   `csrc/splat_raster.cu`, replacing `_fused_kernel`). The kernel walks
+   only the 8 x 4-pixel tiles of a window where a slot can read inside;
+   `window_px_kept` makes the same decisions in plain PyTorch.
 
 The two-pass path of the multi-device raster (parallel/raster.py) splits
 step 3: `compact_cluster_tris` sorts each cluster's triangles valid-first,
@@ -364,6 +366,57 @@ def _fused_plain(depth, winner, rec_rows, owner, meta, wvalid, *, win_h,
     return dep.reshape(H, W), win.reshape(H, W)
 
 
+def window_px_kept(rec_rows, meta, depth, *, win_h, ntri, nedge):
+    """(B, TILES, ntri) bool: which (8 x 4-pixel tile, record slot) pairs
+    of each window kernel B1 evaluates, in plain PyTorch (for tests and
+    measurement; the plain version walks every pixel of every window).
+    rec_rows (B, row) are the windows' owners' record rows (rec_rows of the
+    call, indexed by owner), meta (B,) their packed col*2048 + y0, depth
+    the call's incoming (H, W) depth. Tile t of a window covers columns
+    8 * (t % 16) + [0, 8) and rows 4 * (t // 16) + [0, 4); TILES = 16 *
+    ceil(win_h / 4).
+
+    A pair is dropped iff some edge of the slot reads > 0 at the tile's
+    pixel centre where that edge reads least (the left or right column by
+    the sign of its x coefficient, the top or bottom row by the sign of
+    its y coefficient), in the walk's arithmetic `(a*px + c) + b*py`, or
+    does so over the tile's 32 x 16 block (the kernel's first, coarser
+    pass: columns 32 * (t % 16 // 4), rows 16 * (t // 64)), or the tile
+    lies past the frame, or the slot's depth plane is all zeros and no
+    depth is below 0. Correct rounding is monotone, so that edge
+    then reads > 0 (or NaN) at every pixel of the tile: the slot is inside
+    at none of them. A zero depth plane reads z = 0 <= depth everywhere,
+    and such a slot neither writes nor changes which slot of the window
+    writes (csrc/splat_raster.cu)."""
+    dev = rec_rows.device
+    height, width = depth.shape
+    b = meta.shape[0]
+    stride = 3 * nedge + 4
+    ntiles = WIN_W // 8 * ((win_h + 3) // 4)
+    t = torch.arange(ntiles, device=dev)
+    x0 = ((meta // 2048) * WIN_W)[:, None]
+    y0 = (meta % 2048)[:, None]
+    tx = x0 + (t % 16 * 8)[None, :]
+    ty = y0 + (t // 16 * 4)[None, :]
+    bx = x0 + (t % 16 // 4 * 32)[None, :]                  # its 32 x 16 block
+    by = y0 + (t // 64 * 16)[None, :]
+    rec = rec_rows.reshape(b, -1)[:, :ntri * stride].reshape(b, ntri,
+                                                             stride)
+    out = ~((tx < width) & (ty < height))[:, :, None]      # (B, TILES, 1)
+    for j in range(nedge):
+        a, bb, c = (rec[:, None, :, 3 * j + k] for k in range(3))
+        for x, y, w, h in ((bx, by, 32, 16), (tx, ty, 8, 4)):
+            px = (x[:, :, None] + torch.where(a >= 0, 0, w - 1)).to(
+                torch.float32) + 0.5
+            py = (y[:, :, None] + torch.where(bb >= 0, 0, h - 1)).to(
+                torch.float32) + 0.5
+            out = out | ((a * px + c) + bb * py > 0)
+    if not bool((depth < 0).any()):
+        out = out | torch.all(rec[:, None, :, 3 * nedge:3 * nedge + 3] == 0,
+                              -1)
+    return ~out
+
+
 def fused_eval_composite(depth, winner, rec_rows, owner, meta, wvalid, *,
                          win_h=32, ntri=8, nedge=3):
     """Evaluate + merge windows (kernel B1; replaces the JAX package's
@@ -371,12 +424,15 @@ def fused_eval_composite(depth, winner, rec_rows, owner, meta, wvalid, *,
 
     depth/winner (H, W) f32; rec_rows (ncl, rrows, 128) from
     build_rec_rows (nedge=3) or build_quad_rec_rows (nedge=4), `ntri`
-    record slots per row; owner/meta/wvalid from build_windows. Per pixel
-    of each window and record slot: edges `e = (a*px + c) + b*py`, inside
-    if every e <= 0; `z = (za*px + zc) + zb*py`; a write where z beats the
-    depth (strict). Returns new (depth, winner) — winner holds the record's
-    id field (global tri id as f32). CPU tensors run the plain PyTorch
-    version; CUDA tensors launch `csrc/splat_raster.cu`."""
+    record slots per row; owner/meta/wvalid from build_windows (wvalid a
+    valid prefix, as build_windows gives it: the kernel stops at the first
+    invalid window). Per pixel of each window and record slot: edges
+    `e = (a*px + c) + b*py`, inside if every e <= 0; `z = (za*px + zc) +
+    zb*py`; a write where z beats the depth (strict).
+    Returns new (depth, winner) — winner holds the record's id field
+    (global tri id as f32). CPU tensors run the plain PyTorch version;
+    CUDA tensors launch `csrc/splat_raster.cu`, which evaluates only the
+    (tile, slot) pairs `window_px_kept` keeps: the same bits."""
     stride = 3 * nedge + 4
     if rec_rows.dim() != 3:
         raise ValueError("rec_rows must be (ncl, rrows, 128)")
@@ -398,7 +454,7 @@ def fused_eval_composite(depth, winner, rec_rows, owner, meta, wvalid, *,
     _cuda.require(wvalid, "wvalid", torch.bool, (nb,))
     if nedge not in (3, 4) or nb * ntri >= 0xFFFFFFFE:
         raise ValueError("fused_eval_composite: unsupported shape")
-    key = torch.empty((H, W), dtype=torch.int64, device=depth.device)
+    key = torch.empty(H * W + 1, dtype=torch.int64, device=depth.device)
     dep_out = torch.empty_like(depth)
     win_out = torch.empty_like(winner)
     lib = _cuda.library()
@@ -408,6 +464,10 @@ def fused_eval_composite(depth, winner, rec_rows, owner, meta, wvalid, *,
             row_len, owner.data_ptr(), meta.data_ptr(), wvalid.data_ptr(),
             nb, ntri, nedge, win_h, H, W, key.data_ptr(), dep_out.data_ptr(),
             win_out.data_ptr(), _cuda.stream_ptr(depth))
+    if err == _cuda.INVALID_VALUE:  # launched nothing
+        raise ValueError(f"fused_eval_composite: one window of {ntri} "
+                         f"slots and {win_h} rows exceeds a CTA's shared "
+                         f"memory")
     _cuda.check(err, "bt_splat_fused")
     fused_eval_composite.launches += 1
     return dep_out, win_out

@@ -6,13 +6,20 @@ Builds the CUDA kernels from `bevy_tpu_torch/csrc/` (one nvcc process a
 source, all started together), then:
 1. holds the window-splat (B1) and streaming-tile (B2) kernels against
    their plain PyTorch versions, bit for bit, on a scene with both window
-   classes and on one with giant and near-plane clusters;
+   classes and on one with giant and near-plane clusters, and B1 on four
+   scenes that stress its cull (tests/torch_scenes.py b1_cull_scenes:
+   slivers across tile and frame edges; random planes with zeros,
+   infinities and NaNs over some negative depths; 40 slots over 256- and
+   1200-row windows), with B1's cull counts for every call;
 2. renders the many_cubes twin at the golden configuration (300 cubes,
    320x180, 2 frames) and compares it with tests/goldens/cubes_splat_f2.png
    (under 1% of pixels may drift by more than 8);
 3. runs the full-size many_cubes frame (160,000 cubes, 1280x720), times 20
    frames with CUDA events and checks both kernels were launched;
-4. times B1 and B2 against their plain versions at the full-size shapes;
+4. holds both of the full-size frame's B1 calls (the two window classes)
+   against plain, bit for bit, with their cull counts and the share of
+   window pixels in the owner's screen box, and times B1 (each class) and
+   B2 against their plain versions at the full-size shapes;
 5. renders the many_lights twin at the golden configuration (48 lights,
    256x144, 1 frame) against tests/goldens/lights_f1.png, holding B1 and
    B2 (bit for bit) and the deferred shade B3 (rtol 1e-5, atol 1e-5, the
@@ -42,8 +49,10 @@ source, all started together), then:
    pair_overflow and visible_overflow are 0 (tile_overflow, the true
    count, is printed);
 12. holds the window-splat sprite raster (B5) against its plain version,
-   bit for bit, on every (rotated, alpha_only, f32/bf16) variant, and on
-   tall, equal-z and opaque-wall scenes;
+   bit for bit, with its cull counts, on all 16 (bilinear, rotated,
+   alpha_only, f32/bf16) variants, on sprites straddling its warps'
+   32-column boundaries (rotated and not), and on tall, equal-z and
+   opaque-wall scenes;
 13. runs bevymark at full size (1280x720): 150 frames build the flock,
    then 20 frames are timed; checks the bird count against the spawn
    budget arithmetic, that B5 was launched once a frame and that
@@ -98,21 +107,26 @@ a device): their work runs one shard after another.
 
 Each kernel's bound (the least time the card could take for the same work:
 the larger of its bytes over 3.35 TB/s and its FP32 operations over 67
-TFLOP/s, counted from this run's inputs: for B3 the light body over the
-contributing pairs, win > 0; for B7/B8 the edge and depth tests over the
-pairs inside the edges, and the record fields each triangle needs by what
-it does: its edges if listed, its depth if inside at some pixel, its shade
-if it wins one) is printed beside its time, with the old count (the
-reference's walk of every listed pair, whole records) beside it and B3's
-and B7's times before their redesign (BEFORE_REDESIGN_MS).
+TFLOP/s, counted from this run's inputs: for B1 the edge and depth tests
+over the (pixel, slot) pairs inside the edges; for B3 the light body over
+the contributing pairs, win > 0; for B5 the coverage, blend and sample of
+the covered (pixel, window) pairs; for B7/B8 the edge and depth tests
+over the pairs inside the edges, and the record fields each triangle
+needs by what it does: its edges if listed, its depth if inside at some
+pixel, its shade if it wins one) is printed beside its time, with the
+old count (the reference's walk of every listed pair, whole records)
+beside it and B1's, B3's, B5's and B7's times before their redesign
+(BEFORE_REDESIGN_MS). Device times: 20 calls queued behind a spin kernel
+between CUDA events (device_ms), with torch.profiler's split by kernel.
 
-B3's and B7's cull counts: the (pixel, light) or (pixel, triangle) pairs
-the reference's walk reaches, the pairs the kernel's per-CTA cull keeps
-(replayed by `shade.light_in_block`, `raster3d_tris.tri_in_block`: the
-same decisions in plain PyTorch, not read back from the kernel), the
-pairs that contribute (win > 0) or are inside the edges, and the pairs
-the cull drops that would have contributed or been inside, which must be
-0 (asserted).
+The culls' counts: the (pixel, slot / light / window / triangle) pairs
+the reference's walk reaches, the pairs the kernel's cull keeps (replayed
+by `raster3d_splat.window_px_kept`, `shade.light_in_block`,
+`raster2d_splat.sprite_in_warp`, `raster3d_tris.tri_in_block`: the same
+decisions in plain PyTorch, not read back from the kernel), the pairs
+that could write (B1: inside the edges, z above the depth), contribute
+(B3: win > 0), are covered (B5) or are inside the edges (B7), and the
+pairs the cull drops that would have, which must be 0 (asserted).
 
 The last three lines of standard output are a JSON object of kernel
 results, the card's name and power limit (nvidia-smi), and the card's
@@ -166,8 +180,11 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 FP32_FLOPS = 67e12             # H100 SXM, FP32 outside the tensor cores
 SHADE_TOL = dict(rtol=1e-5, atol=1e-5)
 # the kernels' times before their redesign (PERF.md §6: NVIDIA H100 80GB
-# HBM3, 700.00 W, the same phases of this script)
-BEFORE_REDESIGN_MS = {"B3": 2.0329, "B7": 1.8988}
+# HBM3, 700.00 W; B1: the device time of this script's full-height call,
+# B3, B7: its events time, B5: the device time a frame of
+# examples/torch_bevymark.py --profile 10)
+BEFORE_REDESIGN_MS = {"B1": 0.4144, "B3": 2.0329, "B5": 0.5765,
+                      "B7": 1.8988}
 
 
 def log(*a):
@@ -334,7 +351,11 @@ def compare(kid, a, kw):
     dk, wk = kernel_fn(kid)(*a, **kw)
     dp, wp = plain_fn(kid)(*a, **kw)
     torch.cuda.synchronize()
-    err = max(float((dk - dp).abs().max()), float((wk - wp).abs().max()))
+    # over the values whose bits differ: an infinity in both reads 0, not
+    # inf - inf = NaN
+    err = max(float(torch.where(x.view(torch.int32) == y.view(torch.int32),
+                                0.0, (x - y).abs()).max())
+              for x, y in ((dk, dp), (wk, wp)))
     same = torch.equal(dk.view(torch.int32), dp.view(torch.int32)) and \
         torch.equal(wk.view(torch.int32), wp.view(torch.int32))
     if not same:
@@ -365,19 +386,133 @@ def _bound(nbytes, flops):
     return max(tb, tf) * 1e3, ("bytes" if tb >= tf else "operations")
 
 
+def work_b1(a, kw, aabb=None, chunk=1024):
+    """(pixel, slot) pairs of one B1 call, over the valid windows'
+    in-frame pixels: {"old": the reference's walk (every pixel of every
+    window, every slot), "kept": those in the (tile, slot) pairs the
+    kernel's cull keeps (raster3d_splat.window_px_kept's plain replay of
+    it), "inside": kept pairs inside the slot's edges (the walk's
+    arithmetic), "writing": pairs inside whose z beats the incoming depth
+    (the pairs that can write), "dropped": writing pairs the cull drops
+    (must be 0), "tiles": (window tile, slot) pairs kept / in the frame,
+    "px": the windows' in-frame pixels, "in_kept": those in a tile with a
+    kept slot, "in_box": those whose centre lies in the owner's screen box
+    `aabb` (where given)}."""
+    from bevy_tpu_torch.ops import raster3d_splat as splat
+    depth, _, rows, owner, meta, wvalid = a
+    win_h, ntri, nedge = kw["win_h"], kw["ntri"], kw["nedge"]
+    H, W = depth.shape
+    dev = depth.device
+    stride = 3 * nedge + 4
+    nv = int(wvalid.sum())
+    flat_rows = rows.reshape(rows.shape[0], -1)
+    lane = torch.arange(128, device=dev)
+    row = torch.arange(win_h, device=dev)
+    tile = (row[:, None] // 4) * 16 + lane[None, :] // 8
+    keys = ("old", "kept", "inside", "writing", "dropped", "px", "in_box",
+            "in_kept")
+    n = dict.fromkeys(keys, 0)
+    n["tiles"] = [0, 0]
+    for c0 in range(0, nv, chunk):
+        o = owner[c0:min(c0 + chunk, nv)].long()
+        m = meta[c0:c0 + o.shape[0]]
+        flat = flat_rows[o]
+        kept = splat.window_px_kept(flat, m, depth, win_h=win_h, ntri=ntri,
+                                    nedge=nedge)
+        rec = flat[:, :ntri * stride].reshape(-1, 1, 1, ntri, stride)
+        x = ((m // 2048) * 128)[:, None, None] + lane[None, None, :]
+        y = (m % 2048)[:, None, None] + row[None, :, None]
+        px = x.float()[..., None] + 0.5
+        py = y.float()[..., None] + 0.5
+        frame = (x < W) & (y < H)
+        inside = frame[..., None]
+        for j in range(nedge):
+            e = (rec[..., 3 * j] * px + rec[..., 3 * j + 2]) + \
+                rec[..., 3 * j + 1] * py
+            inside = inside & (e <= 0)
+        zb = 3 * nedge
+        z = (rec[..., zb] * px + rec[..., zb + 2]) + rec[..., zb + 1] * py
+        dep = depth[y.clamp(max=H - 1), x.clamp(max=W - 1)][..., None]
+        writing = inside & (z > dep)
+        kpx = kept[:, tile] & frame[..., None]
+        t = torch.arange(kept.shape[1], device=dev)
+        tx = ((m // 2048) * 128)[:, None] + (t % 16 * 8)[None, :]
+        ty = (m % 2048)[:, None] + (t // 16 * 4)[None, :]
+        n["old"] += int(frame.sum()) * ntri
+        n["kept"] += int(kpx.sum())
+        n["inside"] += int((inside & kpx).sum())
+        n["writing"] += int(writing.sum())
+        n["dropped"] += int((writing & ~kpx).sum())
+        n["tiles"][0] += int(kept.sum())
+        n["tiles"][1] += int(((tx < W) & (ty < H)).sum()) * ntri
+        n["px"] += int(frame.sum())
+        n["in_kept"] += int((kpx.any(-1)).sum())
+        if aabb is not None:
+            bx = aabb[o][:, :, None, None]
+            n["in_box"] += int((frame & (px[..., 0] >= bx[:, 0]) &
+                                (px[..., 0] <= bx[:, 2]) &
+                                (py[..., 0] >= bx[:, 1]) &
+                                (py[..., 0] <= bx[:, 3])).sum())
+    return n
+
+
+def b1_cull_line(name, a, kw, aabb=None):
+    """Log B1's cull counts for one call and assert that no dropped pair
+    was inside its slot's edges."""
+    n = work_b1(a, kw, aabb)
+    box = "" if aabb is None else (
+        f"; {n['in_box']} of them ({n['in_box'] / max(n['px'], 1):.2%}) in "
+        f"the owner's screen box")
+    log(f"B1 cull, {name} (win_h {kw['win_h']}, {kw['ntri']} slots of "
+        f"{kw['nedge']} edges, {int(a[5].sum())} windows): (pixel, slot) "
+        f"pairs the old walk reached {n['old']}, the tile cull keeps "
+        f"{n['kept']} (replayed in plain torch by "
+        f"raster3d_splat.window_px_kept), kept and inside the edges "
+        f"{n['inside']}, inside with z above the depth (could write) "
+        f"{n['writing']}, dropped that could write {n['dropped']}; "
+        f"(tile, slot) pairs kept "
+        f"{n['tiles'][0]} of {n['tiles'][1]}; window pixels in the frame "
+        f"{n['px']}, in a kept tile {n['in_kept']} "
+        f"({n['in_kept'] / max(n['px'], 1):.2%}){box}")
+    if n["dropped"]:
+        raise AssertionError(f"B1's cull dropped {n['dropped']} pairs that "
+                             f"could write ({name})")
+    return n
+
+
 def bound_b1(a, kw):
-    """B1: depth and winner read and written once, the record rows of the
-    valid windows' owners, 9 B of window data each; per pixel of each valid
-    window and record slot, nedge edge tests (2 mul, 2 add, 1 compare) and
-    a depth plane (2 mul, 2 add) with its compare."""
+    """B1: depth and winner read and written once; of each valid window's
+    owner once, the ntri records the call reads (not the row's zero
+    padding); owner, meta and wvalid of each valid window (9 B), and the
+    wvalid byte past the valid prefix that ends the walk; the edge tests
+    (2 mul, 2 add, 1 compare each) and the depth plane (2 mul, 2 add) with
+    its compare of the (pixel, slot) pairs inside the slot's edges (what
+    these inputs need: a pair outside writes nothing, nor does a zero
+    padding slot over a depth >= 0). Returns (ms, bound by, text) with the
+    old figure — whole padded record rows, 9 B of every window of the
+    budget, every pixel of every valid window and every slot — and the
+    pair counts in the text."""
     depth, _, rec_rows, owner, _, wvalid = a
     npx = depth.numel()
-    used = torch.unique(owner[wvalid.bool()])
-    row_b = rec_rows.shape[1] * rec_rows.shape[2] * 4
-    nbytes = 16 * npx + used.numel() * row_b + 9 * owner.numel()
-    nwin = int(wvalid.sum())
-    flops = nwin * kw["win_h"] * 128 * kw["ntri"] * (5 * kw["nedge"] + 5)
-    return _bound(nbytes, flops)
+    nv = int(wvalid.sum())
+    used = torch.unique(owner[wvalid.bool()]).numel()
+    rec_b = kw["ntri"] * (3 * kw["nedge"] + 4) * 4
+    nbytes = 16 * npx + used * rec_b + 9 * nv + min(1, owner.numel() - nv)
+    old_bytes = 16 * npx + used * rec_rows.shape[1] * rec_rows.shape[2] * 4 \
+        + 9 * owner.numel()
+    per_pair = 5 * kw["nedge"] + 5
+    n = work_b1(a, kw)             # main() logs this call's cull line
+    ms, by = _bound(nbytes, n["inside"] * per_pair)
+    old_ms, old_by = _bound(old_bytes, nv * kw["win_h"] * 128 * kw["ntri"]
+                            * per_pair)
+    mid_ms, mid_by = _bound(old_bytes, n["inside"] * per_pair)
+    return ms, by, (f"recounted over {n['inside']} (pixel, slot) pairs "
+                    f"inside the edges and {nbytes} B; the same pairs over "
+                    f"whole rows and the whole budget ({old_bytes} B) "
+                    f"{mid_ms:.4f} ms ({mid_by}); the old count, over every "
+                    f"pixel of every window, {old_ms:.4f} ms ({old_by}); the "
+                    f"tile cull keeps {n['kept']} of {n['old']} (plain "
+                    f"replay)")
 
 
 def bound_b2(a, kw):
@@ -589,10 +724,14 @@ def bound_b4(a, kw):
 
 
 def work_b5(a, kw):
-    """(walked, in window rows, covered, covered textured) (pixel, window)
-    pairs of one B5 call: each in-frame pixel walks its 8-row block's
-    windows front to back until its alpha is exactly 1.0, as the kernel
-    does."""
+    """(pixel, window) pairs of one B5 call: each in-frame pixel walks its
+    8-row block's windows front to back until its alpha is exactly 1.0, as
+    the kernel does. {"walked": the pairs the reference's walk reaches,
+    "rows": those in the window's rows, "kept": walked pairs of windows
+    the kernel's per-warp cull keeps (raster2d_splat.sprite_in_warp's plain
+    replay of it), "covered": pairs inside the sprite, "textured": covered
+    pairs of textured sprites, "dropped": covered pairs the cull drops
+    (must be 0)}."""
     from bevy_tpu_torch.ops import raster2d_splat
     fb, pk, win, blk_win, blk_start, blk_count, atlas = a
     win_h = kw.get("win_h", 40)
@@ -608,9 +747,11 @@ def work_b5(a, kw):
     yi = torch.arange(8, device=dev)[None, :, None] + \
         ((bi % nrb) * 8)[:, None, None]
     px, py = xi.float() + 0.5, yi.float() + 0.5
+    x0 = xi // raster2d_splat.WARP_W * raster2d_splat.WARP_W
     in_frame = (xi < W) & (yi < H)
     pa = torch.zeros(nb, 8, 128, device=dev)
-    n = [0, 0, 0, 0]
+    n = dict.fromkeys(("walked", "rows", "kept", "covered", "textured",
+                       "dropped"), 0)
     for s_ in range(int(blk_count.max())):
         w = blk_win[torch.clamp(blk_start + s_, 0,
                                 blk_win.shape[0] - 1).long()].long()
@@ -628,6 +769,8 @@ def work_b5(a, kw):
             lx, ly = px - d[0], py - d[1]
         inside = (torch.abs(lx) <= d[2]) & (torch.abs(ly) <= d[3])
         cov = rows & inside
+        kept = raster2d_splat.sprite_in_warp(d, wy0, x0, yi, win_h=win_h,
+                                             rotated=rotated)
         # alpha reaches 1 only through the texel alpha times the tint;
         # sample it as the kernel does (lx/ly on the window's edges when
         # rotated)
@@ -641,10 +784,26 @@ def work_b5(a, kw):
             atlas, d, lxs, lys, kw.get("bilinear", True),
             kw.get("bf16", False), kw.get("alpha_only", False))[3]
         pa = pa + (1.0 - pa) * torch.where(cov, ta * d[9], 0.0)
-        n[0] += int(live.sum())
-        n[1] += int(rows.sum())
-        n[2] += int(cov.sum())
-        n[3] += int((cov & (d[14] >= 0)).sum())
+        n["walked"] += int(live.sum())
+        n["rows"] += int(rows.sum())
+        n["kept"] += int((live & kept).sum())
+        n["covered"] += int(cov.sum())
+        n["textured"] += int((cov & (d[14] >= 0)).sum())
+        n["dropped"] += int((cov & ~kept).sum())
+    return n
+
+
+def b5_cull_line(name, a, kw):
+    """Log B5's cull counts for one call and assert that no dropped pair
+    was covered."""
+    n = work_b5(a, kw)
+    log(f"B5 cull, {name}: (pixel, window) pairs the old walk reached "
+        f"{n['walked']}, the warp cull keeps {n['kept']} (replayed in plain "
+        f"torch by raster2d_splat.sprite_in_warp), covered {n['covered']}, "
+        f"dropped but covered {n['dropped']}")
+    if n["dropped"]:
+        raise AssertionError(f"B5's cull dropped {n['dropped']} covered "
+                             f"pairs ({name})")
     return n
 
 
@@ -652,11 +811,15 @@ def bound_b5(a, kw):
     """B5: the framebuffer read and written once (32 B a pixel), each
     visible sprite row once (68 B), each window record (12 B), each block
     list entry (4 B), the block runs (8 B a block) and the atlas planes it
-    samples; operations B5_OPS over work_b5's counts."""
+    samples; operations B5_OPS over the pairs inside each sprite's extent
+    that the walk reaches (the coverage, blend and sample of a covered
+    pair; what these inputs need). Returns (ms, bound by, text) with the
+    old figure — also the row test of every walked pair and the coverage
+    of every pair in the window's rows — and the pair counts."""
     fb, pk, win, blk_win, blk_start, blk_count, atlas = a
     alpha = kw.get("alpha_only", False)
     bf16 = kw.get("bf16", False)
-    walked, rows, covered, textured = work_b5(a, kw)
+    n = b5_cull_line("full size", a, kw)
     npx = fb.shape[1] * fb.shape[2]
     nwin = int((win[:, 0] >= 0).sum())
     nbytes = 32 * npx + 68 * pk.shape[0] + 12 * nwin + \
@@ -665,12 +828,18 @@ def bound_b5(a, kw):
     o = B5_OPS
     sample = (o["sample_alpha"] + o["bf16_alpha"] * bf16) if alpha else \
         (o["sample"] + o["bf16"] * bf16)
-    ops = o["pixel"] * npx + o["row"] * walked + \
-        (o["cover_rot"] if kw.get("rotated", True) else o["cover"]) * rows + \
-        (o["blend_alpha"] if alpha else o["blend"]) * covered + \
-        sample * textured
-    return _bound(nbytes, ops) + (f"{walked} (pixel, window) pairs walked, "
-                                  f"{covered} covered",)
+    cover = o["cover_rot"] if kw.get("rotated", True) else o["cover"]
+    blend = o["blend_alpha"] if alpha else o["blend"]
+    base = o["pixel"] * npx + blend * n["covered"] + sample * n["textured"]
+    ms, by = _bound(nbytes, base + cover * n["covered"])
+    old_ms, old_by = _bound(nbytes, base + o["row"] * n["walked"] +
+                            cover * n["rows"])
+    return ms, by, (f"recounted over {n['covered']} covered (pixel, "
+                    f"window) pairs; the old count, with the row test of "
+                    f"the {n['walked']} walked pairs and the coverage of "
+                    f"{n['rows']} in the window's rows, {old_ms:.4f} ms "
+                    f"({old_by}); the warp cull keeps {n['kept']} (plain "
+                    f"replay)")
 
 
 def _b6_pixels(a, kw):
@@ -993,23 +1162,51 @@ def timed_frames(app, n):
     return start.elapsed_time(end) / n, launches, stats, covered
 
 
-def device_ms(fn, reps=5):
-    """(ms a call, [(kernel name, ms a call), ...] largest first): the
-    device time of the CUDA kernels and copies `fn` launches, summed, from
-    torch.profiler over `reps` calls; (None, []) when the profiler sees
-    no device time. Unlike CUDA events around the calls, it leaves out
-    the host's time between launches."""
+def device_ms(fn, reps=20):
+    """(ms a call on the device, [(kernel name, ms a call), ...] largest
+    first, from torch.profiler where it kept any record; [] where not).
+
+    The time: `reps` calls queued behind a spin kernel that outlasts
+    their enqueue, between two CUDA events, so the calls run back to back
+    and the host's time between launches is left out (the kernels' time
+    plus the device's gaps between launches, a microsecond or two each).
+    Raises if the enqueue outlasted the spin (the queue ran dry).
+
+    torch.profiler is not the measure: in long runs it kept fewer kernel
+    records than calls, or none (B5 at full size, twice), so a sum over
+    its records read low or nothing. The split by kernel is each kernel's
+    mean over the records kept times its launches a call (records / reps,
+    rounded, at least 1)."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    spun, start, end = (torch.cuda.Event(enable_timing=True)
+                        for _ in range(3))
+    spun.record()
+    torch.cuda._sleep(int(max(2e6, 8 * reps * host_s * 2e9)))  # ~2 GHz
+    start.record()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    enqueue_ms = (time.perf_counter() - t0) * 1e3
+    end.record()
+    torch.cuda.synchronize()
+    if enqueue_ms >= spun.elapsed_time(start):
+        raise AssertionError(f"device_ms: the enqueue ({enqueue_ms:.3f} ms) "
+                             f"outlasted the spin kernel")
+    ms = start.elapsed_time(end) / reps
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    rows = [(e.key, e.self_device_time_total / reps / 1e3)
+    rows = [(e.key, e.self_device_time_total / e.count
+             * max(1, round(e.count / reps)) / 1e3)
             for e in prof.key_averages() if e.self_device_time_total > 0]
-    rows.sort(key=lambda r: -r[1])
-    return (sum(r[1] for r in rows) if rows else None), rows
+    return ms, sorted(rows, key=lambda r: -r[1])
 
 
 def time_kernel(kid, a, kw, launches, err, library=None):
@@ -1030,10 +1227,10 @@ def time_kernel(kid, a, kw, launches, err, library=None):
         f"plain {p_ms:.4f} ms{lib}, bound {b_ms:.4f} ms ({by}{extra}), "
         f"{b_ms / k_ms:.1%} of the bound")
     d_ms, rows = device_ms(lambda: kernel_fn(kid)(*a, **kw))
-    log(f"{kid} device time a call (torch.profiler, 5 calls): "
-        + ("not measured (no device time in the trace)" if d_ms is None
-           else f"{d_ms:.4f} ms; " + "; ".join(
-               f"{name[:60]} {ms:.4f} ms" for name, ms in rows[:3])))
+    log(f"{kid} device time a call (20 calls queued behind a spin kernel, "
+        f"CUDA events): {d_ms:.4f} ms; by kernel (torch.profiler): "
+        + ("; ".join(f"{name[:60]} {ms:.4f} ms" for name, ms in rows[:3])
+           or "no record kept"))
     name, source, replaces = KERNELS[kid]
     if kid in ("B7", "B8"):          # one wrapper, two kernels
         name = f"{name}(layout={kw['layout']})"
@@ -1075,42 +1272,9 @@ def variants_app(device):
     return app
 
 
-def sprite_scene(seed, device, n=60, H=80, W=200, rot=False, big=False,
-                 ties=False, atlas_hw=16):
-    """The sprite scenes of tests/test_torch_sprite.py, on `device`:
-    packed (n, 17) sprites (some off-screen, 30% exactly opaque, 30% with
-    flipped uv, 70% textured unless rotated, z in 6 levels or all equal,
-    10% inactive), a framebuffer and a smooth (4, atlas_hw, atlas_hw)
-    atlas."""
-    rng = np.random.RandomState(seed)
-    p = np.zeros((n, 17), np.float32)
-    p[:, 0] = rng.uniform(-10, W + 10, n)
-    p[:, 1] = rng.uniform(-10, H + 10, n)
-    p[:, 2:4] = rng.uniform(2, 40 if big else 14, (n, 2))
-    ang = rng.uniform(-3, 3, n) if rot else np.zeros(n)
-    p[:, 4], p[:, 5] = np.cos(ang), np.sin(ang)
-    p[:, 6:9] = rng.uniform(0.1, 1, (n, 3))
-    p[:, 9] = np.where(rng.uniform(size=n) < 0.3, 1.0,
-                       rng.uniform(0.3, 1, n))
-    p[:, 12:14] = 1.0
-    flip = rng.uniform(size=n) < 0.3
-    p[flip, 10], p[flip, 12] = 1.0, 0.0
-    p[:, 14] = np.where((rng.uniform(size=n) < 0.7) & (not rot), 0.0, -1.0)
-    p[:, 15] = 0.0 if ties else rng.randint(0, 6, n)
-    p[:, 16] = (rng.uniform(size=n) < 0.9).astype(np.float32)
-    fb = rng.uniform(0, 1, (4, H, W)).astype(np.float32)
-    k = np.arange(atlas_hw, dtype=np.float32)
-    yy, xx = np.meshgrid(k, k, indexing="ij")
-    c = (atlas_hw - 1) / 2
-    atlas = np.stack([xx / (atlas_hw - 1), yy / (atlas_hw - 1),
-                      (xx + yy) % 2,
-                      np.clip(np.hypot(xx - c, yy - c) / (c + 0.5), 0, 1)])
-    return [torch.tensor(x, dtype=torch.float32, device=device)
-            for x in (fb, p, atlas)]
-
-
 def b4_scenes(device):
     """B4 against plain, bit for bit, on the CPU test scenes."""
+    from torch_scenes import sprite_scene
     from bevy_tpu_torch.ops import raster2d
     cases = [("f32 bilinear", dict(seed=0), {}, {}),
              ("f32 nearest", dict(seed=0), {}, dict(bilinear=False)),
@@ -1132,28 +1296,37 @@ def b4_scenes(device):
 
 
 def b5_scenes(device):
-    """B5 against plain, bit for bit: every variant, and tall, equal-z
-    and opaque-wall scenes on bevymark's variant."""
+    """B5 against plain, bit for bit, with its cull counts: all 16
+    variants, sprites straddling the warps' 32-column boundaries, and
+    tall, equal-z and opaque-wall scenes on bevymark's variant."""
     from bevy_tpu_torch.ops import raster2d_splat
+    from torch_scenes import b5_straddle_scene, sprite_scene
 
     def run(name, fb, p, atlas, **kw):
         pk, win, bw, bs, bc, st = raster2d_splat.build_sprite_windows(
             p, fb.shape[1], fb.shape[2], windows_per_sprite=8)
         if int(st["pair_overflow"]):
             raise AssertionError(f"B5 scene {name} overflowed its windows")
-        err = compare("B5", (fb, pk, win, bw, bs, bc, atlas), kw)
+        a = (fb, pk, win, bw, bs, bc, atlas)
+        err = compare("B5", a, kw)
         log(f"B5 vs plain, {name}: bit-equal (max abs err {err}; "
             f"{int((win[:, 0] >= 0).sum())} windows)")
+        b5_cull_line(name, a, kw)
 
     for rot in (False, True):
         for alpha in (False, True):
             for bf16 in (False, True):
-                fb, p, atlas = sprite_scene(4, device, n=24, H=72, W=160,
-                                            atlas_hw=8, rot=rot)
-                if alpha:
-                    atlas[:3] = 1.0
-                run(f"rotated={rot} alpha_only={alpha} bf16={bf16}", fb, p,
-                    atlas, rotated=rot, alpha_only=alpha, bf16=bf16)
+                for bil in (True, False):
+                    fb, p, atlas = sprite_scene(4, device, n=24, H=72, W=160,
+                                                atlas_hw=8, rot=rot)
+                    if alpha:
+                        atlas[:3] = 1.0
+                    run(f"rotated={rot} alpha_only={alpha} bf16={bf16} "
+                        f"bilinear={bil}", fb, p, atlas, rotated=rot,
+                        alpha_only=alpha, bf16=bf16, bilinear=bil)
+        fb, p, atlas = b5_straddle_scene(10, device, rot)
+        run(f"straddling 32-column boundaries, rotated={rot}", fb, p, atlas,
+            rotated=rot)
     bev = dict(rotated=False, alpha_only=True, bf16=True)
     fb, p, atlas = sprite_scene(5, device, n=24, H=72, W=160, atlas_hw=8,
                                 big=True)
@@ -1840,6 +2013,7 @@ def main():
                          "— this smoke run needs a CUDA card")
     sys.path.insert(0, str(ROOT))
     sys.path.insert(0, str(ROOT / "examples"))
+    sys.path.insert(0, str(ROOT / "tests"))     # torch_scenes
     import torch_many_cubes
     import torch_many_lights
     from bevy_tpu_torch.ops import _cuda
@@ -1901,7 +2075,15 @@ def main():
             errs = [compare(kid, a, kw) for a, kw in recd.calls[kid]]
             log(f"{kid} vs plain, {name} scene: {len(errs)} calls bit-equal "
                 f"(max abs err {max(errs)})")
+        for a, kw in recd.calls["B1"]:
+            b1_cull_line(f"{name} scene", a, kw)
     log(f"near-plane scene: {b2_lists} (tile, cluster) entries through B2")
+    from torch_scenes import b1_cull_scenes
+    for name, (rows, d0, w0, o, m, v, kw, _) in b1_cull_scenes(dev).items():
+        a = (d0, w0, rows, o, m, v)
+        err = compare("B1", a, kw)
+        log(f"B1 vs plain, {name} scene: bit-equal (max abs err {err})")
+        b1_cull_line(f"{name} scene", a, kw)
     torch.cuda.synchronize()
 
     # -- golden image --------------------------------------------------
@@ -1928,14 +2110,33 @@ def main():
         raise AssertionError("full-size frame drew (almost) nothing")
 
     # -- per kernel at the full-size shapes: parity + time ---------------
-    with Recorder() as rec_full:
-        app.update(dt=1 / 60)
+    from bevy_tpu_torch.render import mesh3d
+    boxes, build_windows = [], mesh3d.build_windows
+
+    def keep_box(aabb, *args, **kw_):
+        boxes.append(aabb)
+        return build_windows(aabb, *args, **kw_)
+
+    mesh3d.build_windows = keep_box
+    try:
+        with Recorder() as rec_full:
+            app.update(dt=1 / 60)
+    finally:
+        mesh3d.build_windows = build_windows
     torch.cuda.synchronize()
     results = {}
-    for kid in ("B1", "B2"):
-        a, kw = rec_full.calls[kid][-1]
-        results[kid] = time_kernel(kid, a, kw, launches[kid], compare(kid, a,
-                                                                      kw))
+    # B1: both window classes bit-equal, with their cull counts and the
+    # share of window pixels in the owner's screen box; the kernels line
+    # carries the full-height class (the last call)
+    for (a, kw), box in zip(rec_full.calls["B1"], boxes):
+        err = compare("B1", a, kw)
+        log(f"B1 vs plain, many_cubes full size, win_h {kw['win_h']}: "
+            f"bit-equal (max abs err {err})")
+        b1_cull_line("many_cubes full size", a, kw, aabb=box)
+        results["B1"] = time_kernel("B1", a, kw, launches["B1"], err)
+    a, kw = rec_full.calls["B2"][-1]
+    results["B2"] = time_kernel("B2", a, kw, launches["B2"],
+                                compare("B2", a, kw))
     cubes_img = frame_image(app)
     # the pixels B2 drew in that frame: the fallback clusters' footprint
     a, kw = rec_full.calls["B2"][-1]
@@ -1965,6 +2166,8 @@ def main():
         else:
             log(f"{kid} vs plain, lights golden scene: {len(errs)} calls "
                 f"bit-equal (max abs err {max(errs)})")
+    for a, kw in rec_lg.calls["B1"]:
+        b1_cull_line("lights golden scene", a, kw)
     lights_img = frame_image(lapp)
     check_golden(lights_img, LIGHTS_GOLDEN)
     check_stats(lapp.world.state, ("light_pair_overflow",
@@ -2020,6 +2223,8 @@ def main():
         errs = [compare(kid, a, kw) for a, kw in rec_full.calls[kid]]
         log(f"{kid} vs plain, many_lights full size: {len(errs)} calls "
             f"bit-equal (max abs err {max(errs)})")
+    for a, kw in rec_full.calls["B1"]:
+        b1_cull_line("many_lights full size", a, kw)
     a, kw = rec_full.calls["B3"][-1]
     err = compare("B3", a, kw)
     log(f"B3 at full size: max abs err {err[0]}, max rel err {err[1]}, "

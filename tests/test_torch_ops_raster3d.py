@@ -47,6 +47,7 @@ from bevy_tpu_torch.ops import raster3d_visbuf as tvis
 
 W, H = 256, 128
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent / "examples"))
+sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 GOLDEN = Path(__file__).resolve().parent / "goldens" / "cubes_splat_f2.png"
 CS = 12
@@ -253,6 +254,93 @@ def test_fused_eval_composite_plain_matches_pallas(far, quads):
         T(dep0), T(win0), T(rows), T(wins["owner"]), T(wins["meta"]),
         T(wins["wvalid"]), win_h=16, ntri=nslots, nedge=nedge)
     _compare_visbuf(jd, jw, td, tw)
+
+
+def _b1_case(name, far, near):
+    """(rec_rows, depth, owner, meta, wvalid, kw) of one B1 cull scene."""
+    if name in ("random_planes", "slivers", "many_slots", "tall_quads"):
+        from torch_scenes import b1_cull_scenes
+        rows, depth, _, owner, meta, wvalid, kw, _ = \
+            b1_cull_scenes("cpu")[name]
+        return rows, depth, owner, meta, wvalid, kw
+    sc = far if name.startswith("far") else near
+    zrec = T(sc["zrec"]).reshape(-1, tvis.ZREC)
+    if "quads" in name:
+        m = j_cuboid()
+        entries = tsplat.coplanar_quad_pairs(m.positions, m.triangles)
+        rows = tsplat.build_quad_rec_rows(zrec, CS, entries, 4)
+        kw = dict(win_h=32, ntri=4, nedge=4)
+    else:
+        rows = tsplat.build_rec_rows(zrec, CS, 8)
+        kw = dict(win_h=16 if name.startswith("far") else 32, ntri=8,
+                  nedge=3)
+    wins = tsplat.build_windows(T(sc["aabb"]), T(sc["cl_valid"]),
+                                win_h=kw["win_h"], width=W, height=H,
+                                budget=512)
+    assert int(wins["overflow"]) == 0
+    rng = np.random.RandomState(2)
+    depth = np.where(rng.uniform(size=(H, W)) < 0.3,
+                     rng.uniform(0.0, 0.01, (H, W)), 0.0).astype(np.float32)
+    return rows, T(depth), wins["owner"], wins["meta"], wins["wvalid"], kw
+
+
+def _b1_writes_dropped(rows, depth, owner, meta, wvalid, *, win_h, ntri,
+                       nedge):
+    """(pairs that can write, of them dropped by window_px_kept, the kept
+    (tile, slot) mask) of the valid windows: a (pixel, slot) pair can
+    write iff the pixel is in the frame, every edge reads <= 0 and z beats
+    the incoming depth, in _fused_plain's arithmetic `(a*px + c) + b*py`.
+    One slot at a time, each over all windows: few, large ops."""
+    height, width = depth.shape
+    nv = int(wvalid.sum())
+    m = meta[:nv]
+    rec = rows.reshape(rows.shape[0], -1)[owner[:nv].long()]
+    kept = tsplat.window_px_kept(rec, m, depth, win_h=win_h, ntri=ntri,
+                                 nedge=nedge)
+    x = ((m // 2048) * 128)[:, None, None] + torch.arange(128)[None, None, :]
+    y = (m % 2048)[:, None, None] + torch.arange(win_h)[None, :, None]
+    px, py = x.to(torch.float32) + 0.5, y.to(torch.float32) + 0.5
+    dep = depth[y.clamp(max=height - 1), x.clamp(max=width - 1)]
+    frame = (x < width) & (y < height)
+    tile = (torch.arange(win_h)[:, None] // 4) * 16 + \
+        torch.arange(128)[None, :] // 8
+    stride = 3 * nedge + 4
+    writes = dropped = 0
+    for s in range(ntri):
+        def d(j, _b=s * stride):
+            return rec[:, _b + j][:, None, None]
+        ok = frame
+        for j in range(nedge):
+            ok = ok & ((d(3 * j) * px + d(3 * j + 2)) + d(3 * j + 1) * py
+                       <= 0)
+        zb = 3 * nedge
+        ok = ok & ((d(zb) * px + d(zb + 2)) + d(zb + 1) * py > dep)
+        writes += int(ok.sum())
+        dropped += int((ok & ~kept[:, tile, s]).sum())
+    return writes, dropped, kept
+
+
+@pytest.mark.parametrize("name", ["far_tris", "far_quads", "near_tris",
+                                  "slivers", "random_planes", "many_slots",
+                                  "tall_quads"])
+def test_window_px_kept_drops_only_outside_pairs(name, far, near):
+    """B1's cull (window_px_kept, the kernel's decisions in plain PyTorch)
+    drops no (pixel, slot) pair that could write — inside the slot's edges
+    with z above the incoming depth, in the walk's arithmetic: scenes with
+    both window classes, 3-edge triangles and 4-edge quads, near-plane
+    straddlers (full-viewport AABBs), slivers 1e-3 px thick across tile
+    and frame edges, zero padding slots over depths >= 0 and below 0,
+    random planes with zeros, huge and tiny coefficients, infinities and
+    NaNs, and 40 slots over windows of 256 and 1200 rows; windows run past
+    the frame's right and bottom edges."""
+    rows, depth, owner, meta, wvalid, kw = _b1_case(name, far, near)
+    nv = int(wvalid.sum())
+    assert nv >= 8 and bool(wvalid[:nv].all())
+    writes, dropped, kept = _b1_writes_dropped(rows, depth, owner, meta,
+                                               wvalid, **kw)
+    assert dropped == 0
+    assert writes > 0
+    assert int(kept.sum()) < kept.numel()
 
 
 def test_raster_visbuf_plain_matches_pallas(near):

@@ -26,7 +26,8 @@ from bevy_tpu_torch.ops import shade
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "bevy_tpu_torch").rglob("*.py")) + sorted(
-    (ROOT / "examples").glob("torch_*.py")) + [ROOT / "chip_smoke.py"]
+    (ROOT / "examples").glob("torch_*.py")) + [
+        ROOT / "chip_smoke.py", ROOT / "tests" / "torch_scenes.py"]
 TWINS = ("torch_many_cubes", "torch_many_lights", "torch_many_sprites",
          "torch_bevymark", "torch_breakout", "torch_3d_shapes")
 
@@ -136,6 +137,17 @@ def test_kernels_match_plain_on_card():
     with pytest.raises(ValueError):
         splat.fused_eval_composite(d0, w0, rows, owner.long(), meta, wvalid,
                                    win_h=16, ntri=1, nedge=3)
+    # B1's cull on slivers, on random planes (zeros, infinities, NaNs) and
+    # with 40 slots over 256- and 1200-row windows
+    from torch_scenes import b1_cull_scenes
+    for rows, d0, w0, owner, meta, wvalid, kw, _ in \
+            b1_cull_scenes("cuda").values():
+        dk, wk = splat.fused_eval_composite(d0, w0, rows, owner, meta,
+                                            wvalid, **kw)
+        dp, wp = splat._fused_plain(d0, w0, rows, owner, meta, wvalid, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(dk.view(torch.int32), dp.view(torch.int32))
+        assert torch.equal(wk.view(torch.int32), wp.view(torch.int32))
 
 
 def _composite_case(device="cpu"):
@@ -309,6 +321,17 @@ def test_sprite_kernels_match_plain_on_card(bf16):
     assert torch.equal(b4, p4) and torch.equal(b5, p5)
     assert raster2d.sprite_tiles.launches == n4 + 1
     assert raster2d_splat.sprite_splat.launches == n5 + 1
+    # B5's per-warp cull: sprites straddling 32-column boundaries
+    from torch_scenes import b5_straddle_scene
+    for rot in (False, True):
+        fb5, p, atlas5 = b5_straddle_scene(10, "cuda", rot)
+        lists = raster2d_splat.build_sprite_windows(
+            p, fb5.shape[1], fb5.shape[2], windows_per_sprite=8)[:5]
+        kw = dict(bf16=bf16, rotated=rot)
+        k5 = raster2d_splat.sprite_splat(fb5, *lists, atlas5, **kw)
+        q5 = raster2d_splat._sprite_splat_plain(fb5, *lists, atlas5, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(k5.view(torch.int32), q5.view(torch.int32))
     with pytest.raises(ValueError):
         raster2d.sprite_tiles(fb, a4[0], a4[1].long(), a4[2], a4[3], atlas)
 

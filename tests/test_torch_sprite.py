@@ -12,12 +12,16 @@ seed with numpy).
   meets once (the variant code paths are independent per flag); tall
   multi-band sprites, equal-z ties and the opaque early skip on the
   bevymark variant.
+- B5's per-warp cull (`sprite_in_warp`) drops no covered pair.
 
 Tolerance 1e-5 (abs) where the rounding points are mirrored; the port
 measures ~1e-6 (XLA's CPU backend contracts some multiply-adds into
 FMAs, the port never does). One stated exception: B4 bf16, see
 test_b4_bf16_matches_pallas.
 """
+
+import sys
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -29,6 +33,7 @@ from bevy_tpu.ops.raster2d_pallas import raster_sprites_pallas
 from bevy_tpu_torch.ops import raster2d, raster2d_splat
 
 TOL = 1e-5
+sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -227,6 +232,57 @@ def test_b5_variants_match_pallas(splat_chunk, rotated, alpha_only, dtype):
         wall[1][:, 16] = 1.0
         wall[1][23, 9], wall[1][23, 14] = 1.0, -1.0  # opaque solid wall
         assert _b5(wall, **kw).max() < TOL
+
+
+def _b5_cull_pairs(fb, pk, win, blk_win, blk_start, blk_count, *, win_h,
+                   rotated):
+    """(covered, kept) (pair, 8, 128) bools over every (block, listed
+    window) pair: the pixels of the block the window covers, in the walk's
+    arithmetic, and those of the warps sprite_in_warp keeps it for."""
+    _, H, W = fb.shape
+    nb = blk_start.shape[0]
+    nrb = nb // ((W + 127) // 128)
+    blk = torch.repeat_interleave(torch.arange(nb), blk_count.long())
+    wrec = win[blk_win[:blk.shape[0]].long()]
+    d = [pk[wrec[:, 0].long(), k][:, None, None] for k in range(17)]
+    wy0 = wrec[:, 2][:, None, None]
+    y = ((blk % nrb) * 8)[:, None, None] + torch.arange(8)[None, :, None]
+    x = ((blk // nrb) * 128)[:, None, None] + torch.arange(128)[None, None, :]
+    px, py = x.float() + 0.5, y.float() + 0.5
+    cx, cy, hx, hy = d[0], d[1], d[2], d[3]
+    if rotated:
+        cs, sn = d[4], d[5]
+        lx = (cs * px - (cs * cx + sn * cy)) + sn * py
+        ly = (-sn * px + (sn * cx - cs * cy)) + cs * py
+    else:
+        lx, ly = px - cx, py - cy
+    covered = (torch.abs(lx) <= hx) & (torch.abs(ly) <= hy) & \
+        (y >= wy0) & (y < wy0 + win_h) & (x < W) & (y < H)
+    kept = raster2d_splat.sprite_in_warp(d, wy0, x // 32 * 32, y,
+                                         win_h=win_h, rotated=rotated)
+    return covered, kept.expand(covered.shape)
+
+
+@pytest.mark.parametrize("rotated", [False, True], ids=["axis", "rot"])
+@pytest.mark.parametrize("scene", ["random", "straddle"])
+def test_sprite_in_warp_drops_only_uncovered_pairs(scene, rotated):
+    """B5's per-warp cull (sprite_in_warp, the kernel's decisions in plain
+    PyTorch) drops no (pixel, window) pair the walk finds covered: random
+    scenes, and sprites straddling 32-column boundaries with half-widths
+    down to 0.2 px, rotated and axis-aligned."""
+    if scene == "random":
+        fb, p, _ = (torch.from_numpy(x) for x in _scene(
+            9, n=60, H=72, W=200, rot=rotated, atlas_hw=8))
+    else:
+        from torch_scenes import b5_straddle_scene
+        fb, p, _ = b5_straddle_scene(10, "cpu", rotated)
+    *lists, st = raster2d_splat.build_sprite_windows(p, 72, 200,
+                                                     windows_per_sprite=8)
+    assert int(st["pair_overflow"]) == 0
+    covered, kept = _b5_cull_pairs(fb, *lists, win_h=40, rotated=rotated)
+    assert int(covered.sum()) > 0
+    assert int((covered & ~kept).sum()) == 0
+    assert int(kept.sum()) < kept.numel()
 
 
 def test_b5_windows_keep_block_order():

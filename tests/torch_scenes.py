@@ -1,0 +1,161 @@
+"""Inputs shared by the port's CPU tests and chip_smoke.py: the sprite
+scenes, and the scenes that stress the culls of kernels B1 (window-splat
+raster) and B5 (window-splat sprite raster). Each builds its tensors from
+a seed with numpy and moves them to the `device` it is given."""
+
+import numpy as np
+import torch
+
+
+def sprite_scene(seed, device, n=60, H=80, W=200, rot=False, big=False,
+                 ties=False, atlas_hw=16):
+    """The sprite scenes of tests/test_torch_sprite.py, on `device`:
+    packed (n, 17) sprites (some off-screen, 30% exactly opaque, 30% with
+    flipped uv, 70% textured unless rotated, z in 6 levels or all equal,
+    10% inactive), a framebuffer and a smooth (4, atlas_hw, atlas_hw)
+    atlas."""
+    rng = np.random.RandomState(seed)
+    p = np.zeros((n, 17), np.float32)
+    p[:, 0] = rng.uniform(-10, W + 10, n)
+    p[:, 1] = rng.uniform(-10, H + 10, n)
+    p[:, 2:4] = rng.uniform(2, 40 if big else 14, (n, 2))
+    ang = rng.uniform(-3, 3, n) if rot else np.zeros(n)
+    p[:, 4], p[:, 5] = np.cos(ang), np.sin(ang)
+    p[:, 6:9] = rng.uniform(0.1, 1, (n, 3))
+    p[:, 9] = np.where(rng.uniform(size=n) < 0.3, 1.0,
+                       rng.uniform(0.3, 1, n))
+    p[:, 12:14] = 1.0
+    flip = rng.uniform(size=n) < 0.3
+    p[flip, 10], p[flip, 12] = 1.0, 0.0
+    p[:, 14] = np.where((rng.uniform(size=n) < 0.7) & (not rot), 0.0, -1.0)
+    p[:, 15] = 0.0 if ties else rng.randint(0, 6, n)
+    p[:, 16] = (rng.uniform(size=n) < 0.9).astype(np.float32)
+    fb = rng.uniform(0, 1, (4, H, W)).astype(np.float32)
+    k = np.arange(atlas_hw, dtype=np.float32)
+    yy, xx = np.meshgrid(k, k, indexing="ij")
+    c = (atlas_hw - 1) / 2
+    atlas = np.stack([xx / (atlas_hw - 1), yy / (atlas_hw - 1),
+                      (xx + yy) % 2,
+                      np.clip(np.hypot(xx - c, yy - c) / (c + 0.5), 0, 1)])
+    return [torch.tensor(x, dtype=torch.float32, device=device)
+            for x in (fb, p, atlas)]
+
+
+def b5_straddle_scene(seed, device, rot, n=96, H=72, W=200):
+    """The scene of sprite_scene with every sprite centred within 2 px of
+    a 32-column boundary (B5's warp segments), half-sizes from 0.2 px
+    (between two pixel centres) to 40 px; rotated or axis-aligned."""
+    fb, p, atlas = sprite_scene(seed, device, n=n, H=H, W=W, rot=rot,
+                                atlas_hw=8)
+    rng = np.random.RandomState(seed + 100)
+    p[:, 0] = torch.tensor(32.0 * rng.randint(0, W // 32 + 2, n)
+                           + rng.uniform(-2, 2, n), device=device)
+    p[:, 2:4] = torch.tensor(rng.choice([0.2, 0.5, 0.7, 3.0, 16.0, 40.0],
+                                        (n, 2)), device=device)
+    return fb, p, atlas
+
+
+def b1_sliver_corners(seed=0, n_cl=24, cs=4, width=200, height=100):
+    """Clip-space corners (n_cl * cs, 3, 4) of thin triangles: each a
+    random segment of the frame (or up to 40 px past its edges) with its
+    third corner 1e-3..1 px off the segment's middle, at a random w in
+    [0.5, 3], either winding (back-facing ones become padding slots)."""
+    rng = np.random.RandomState(seed)
+    t = n_cl * cs
+    a = rng.uniform([-40, -40], [width + 40, height + 40], (t, 2))
+    b = a + rng.uniform(-60, 60, (t, 2))
+    d = b - a
+    off = rng.choice([1e-3, 1e-2, 0.1, 1.0], t) * rng.choice([-1, 1], t)
+    c = (a + b) / 2 + off[:, None] * np.stack([-d[:, 1], d[:, 0]], 1) / \
+        np.maximum(np.linalg.norm(d, axis=1), 1e-6)[:, None]
+    scr = np.stack([a, b, c], 1)                                # (t, 3, 2)
+    w = rng.uniform(0.5, 3.0, (t, 3))
+    cc = np.zeros((t, 3, 4), np.float32)
+    cc[..., 0] = (scr[..., 0] / width * 2 - 1) * w
+    cc[..., 1] = (1 - scr[..., 1] / height * 2) * w
+    cc[..., 2] = rng.uniform(0.1, 0.9, (t, 3)) * w
+    cc[..., 3] = w
+    return cc
+
+
+def b1_random_rows(seed=1, n_cl=16, ntri=6, nedge=3):
+    """(n_cl, rrows, 128) record rows of random planes: coefficients of
+    every magnitude from 1e-33 to 1e33, exact zeros, infinities and
+    NaNs."""
+    rng = np.random.RandomState(seed)
+    stride = 3 * nedge + 4
+    r = rng.standard_normal((n_cl, ntri, stride)) * \
+        10.0 ** rng.uniform(-3, 3, (n_cl, ntri, stride))
+    r[..., 2::3] *= 300.0                        # offsets the size of px
+    for frac, f in ((0.05, 0.0), (0.02, 1e30), (0.02, 1e-30)):
+        r[rng.uniform(size=r.shape) < frac] *= f
+    for frac, v in ((0.01, np.inf), (0.01, -np.inf), (0.01, np.nan)):
+        r[rng.uniform(size=r.shape) < frac] = v
+    rrows = (ntri * stride + 127) // 128
+    rows = np.zeros((n_cl, rrows * 128), np.float32)
+    rows[:, :ntri * stride] = r.reshape(n_cl, -1)
+    return torch.from_numpy(rows.reshape(n_cl, rrows, 128))
+
+
+def b1_cull_scenes(device):
+    """B1 calls that stress its cull, by name: (rec_rows, depth, winner,
+    owner, meta, wvalid, keywords, (H, W)). "slivers": b1_sliver_corners
+    through the port's setup and windows (3-edge records, padding slots,
+    windows past the frame's right and bottom edges); "random_planes":
+    b1_random_rows over 48 windows at unaligned rows of a 100 x 200
+    frame; "many_slots" (40 slots of 3 edges, 256-row windows: two slot
+    groups, over 32 blocks a window, past the 48 KB a CTA has without
+    opting in; some negative depths) and "tall_quads" (40 slots of 4
+    edges, 1200-row windows: 300 blocks, fewer than eight windows a CTA):
+    random planes over a 1280 x 200 frame."""
+    from bevy_tpu_torch.ops import raster3d_splat as splat
+    from bevy_tpu_torch.ops import raster3d_visbuf as vis
+
+    def fb(rng, h, w):
+        depth = torch.from_numpy(np.where(rng.uniform(size=(h, w)) < 0.3,
+                                          rng.uniform(0.0, 0.5, (h, w)), 0.0)
+                                 .astype(np.float32))
+        # a few negative depths: zero-depth-plane slots may write there
+        neg = torch.where(torch.from_numpy(rng.uniform(size=(h, w)) < 0.05),
+                          -0.25, depth)
+        return depth, neg, torch.full((h, w), -1.0)
+
+    h, w = 100, 200
+    rng = np.random.RandomState(2)
+    out = {}
+    cc = torch.from_numpy(b1_sliver_corners(width=w, height=h))
+    zrec, valid = vis.pack_planes_h(cc, torch.zeros(cc.shape[:-1] + (3,)),
+                                    torch.ones(cc.shape[0], dtype=torch.bool),
+                                    w, h)
+    aabb, cl_valid, _ = vis.cluster_screen_aabbs(
+        cc, torch.ones(1, dtype=torch.bool), valid, 4, w, h)
+    wins = splat.build_windows(aabb, cl_valid, win_h=16, width=w, height=h,
+                               budget=512)
+    out["slivers"] = (splat.build_rec_rows(zrec, 4, 4), wins["owner"],
+                      wins["meta"], wins["wvalid"],
+                      dict(win_h=16, ntri=4, nedge=3))
+    nb = 48
+    meta = rng.randint(0, 2, nb) * 2048 + rng.randint(0, h, nb)
+    out["random_planes"] = (
+        b1_random_rows(), torch.from_numpy(rng.randint(0, 16, nb).astype(
+            np.int32)), torch.from_numpy(meta.astype(np.int32)),
+        torch.ones(nb, dtype=torch.bool), dict(win_h=16, ntri=6, nedge=3))
+    depth, neg, winner = fb(rng, h, w)
+    frames = {"slivers": (depth, winner), "random_planes": (neg, winner)}
+    rng = np.random.RandomState(3)
+    tall = fb(rng, 1280, w)
+    for name, nedge, win_h in (("many_slots", 3, 256),
+                               ("tall_quads", 4, 1200)):
+        nb = 8
+        meta = rng.randint(0, 2, nb) * 2048 + rng.randint(0, 80, nb)
+        out[name] = (
+            b1_random_rows(seed=nedge, n_cl=4, ntri=40, nedge=nedge),
+            torch.from_numpy(rng.randint(0, 4, nb).astype(np.int32)),
+            torch.from_numpy(meta.astype(np.int32)),
+            torch.ones(nb, dtype=torch.bool),
+            dict(win_h=win_h, ntri=40, nedge=nedge))
+        frames[name] = (tall[1] if nedge == 3 else tall[0], tall[2])
+    return {k: (rows.to(device), frames[k][0].to(device),
+                frames[k][1].to(device), o.to(device), m.to(device),
+                v.to(device), kw, tuple(frames[k][0].shape))
+            for k, (rows, o, m, v, kw) in out.items()}
