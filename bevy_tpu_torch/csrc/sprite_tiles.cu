@@ -9,22 +9,39 @@
 // matmuls per channel (the batched body stacked 8 sprites a step and
 // composited them with a halves-pairing tree). Here one thread owns one
 // pixel; a 256-thread CTA covers a 16x16 block inside one bin tile, so the
-// 16 CTAs of a 32x128 tile walk the same run in parallel.
+// 16 CTAs of a 32x128 tile read the same run.
 //
-// What bounds it on an H100: per (pixel, sprite) pair the coverage test is
-// ~10 FP32 operations and a covered textured pixel ~60 more; bytes are the
-// framebuffer in and out (32 B a pixel) plus 68 B a listed sprite row, so
-// at many_sprites' density it is latency-bound on the serial walk.
+// What bounds it on an H100: per covered (pixel, sprite) pair the coverage
+// test is ~12 FP32 operations, the blend 16 and a textured sample ~110;
+// bytes are the framebuffer in and out (32 B a pixel) plus 68 B a listed
+// sprite row. At many_sprites' density (6-px sprites on an 8-px pitch, ~70
+// listed a tile) a 16x16 block meets only 4-9 of its tile's sprites, so a
+// walk of the whole run tests ~70 pairs a pixel for at most one covered.
 //
 // Design:
-// - The CTA stages its tile's run, front-most first, 64 sprite rows
-//   (17 floats each) at a time into shared memory, gathering each row by
-//   its index in the tile's pair list; every thread then reads the rows as
+// - The cull. The CTA takes its tile's run front-most first, 256 listed
+//   sprites a pass, one a thread: the thread reads the sprite's centre,
+//   half size, cos and sin and drops it iff it covers no pixel centre of
+//   the block. The survivors are compacted in order (warp ballot,
+//   popcount, the warps' totals in shared memory) and their 17-float rows
+//   staged in shared memory; every thread then walks only those, as
 //   broadcasts.
+// - Why the cull is exact. The walk's coverage test is |lx| <= hx and
+//   |ly| <= hy with lx = cos*(px - cx) + sin*(py - cy), ly = -sin*(px - cx)
+//   + cos*(py - cy), each step rounded (--fmad=false). Correct rounding is
+//   monotone, so lx is monotone in px for a fixed py (with the sign of
+//   cos) and in py for a fixed px (with the sign of sin): over the block's
+//   centres it is least and greatest at the corners those signs pick, and
+//   likewise ly (signs of -sin and cos). A sprite is dropped iff lx lies
+//   wholly past one side of [-hx, hx], or ly of [-hy, hy], at those
+//   corners, in the walk's own arithmetic; a NaN fails every comparison
+//   and keeps it. A dropped sprite is then outside every pixel of the
+//   block, where the full walk skips it too (its alpha term is 0), so the
+//   image is the full walk's bit for bit. raster2d.sprite_in_block
+//   replays these decisions in PyTorch.
 // - A pixel stops walking once its alpha is exactly 1.0 (every later term
 //   is scaled by a transmittance of 0, so the image equals the full walk),
-//   and the CTA stops staging when all its pixels have.
-// - A pixel outside a sprite skips its sample (its alpha term is 0).
+//   and the CTA stops taking passes when all its pixels have.
 // - `bilinear` and `bf16` are template parameters. Each weight axis has at
 //   most two non-zero taps, so the reference's matmuls become two-tap sums
 //   (adding zeros is exact); f32 follows _kernel's order (both axes
@@ -41,8 +58,10 @@ namespace {
 
 constexpr int BLK = 16;
 constexpr int THREADS = BLK * BLK;
-constexpr int CHUNK = 64;   // sprite rows staged per pass
-constexpr int ROWW = 17;    // packed sprite row width
+constexpr int WARPS = THREADS / 32;
+constexpr int CHUNK = THREADS;  // listed sprites culled per pass, one a thread
+constexpr int ROWW = 17;        // packed sprite row width
+constexpr int MIN_CTAS = 6;     // CTAs an SM
 
 struct Args {
   const float* fb;       // (4, H, W)
@@ -148,10 +167,62 @@ __device__ __forceinline__ void sample(const Args& a, const float* d,
   }
 }
 
+// a*(px - cx) + b*(py - cy) in the walk's order of rounding
+__device__ __forceinline__ float local(float a, float b, float px, float py,
+                                       float cx, float cy) {
+  return __fadd_rn(__fmul_rn(a, __fsub_rn(px, cx)),
+                   __fmul_rn(b, __fsub_rn(py, cy)));
+}
+
+// true iff sprite (cx, cy, hx, hy, cos c, sin s) covers no pixel centre of
+// the BLK x BLK block at (x0, y0) in the walk's arithmetic: lx or ly lies
+// wholly past one side of its range at the corners where it is least and
+// greatest (NaN keeps)
+__device__ __forceinline__ bool outside_block(const float* d, int x0,
+                                              int y0) {
+  const float cx = d[0], cy = d[1], hx = d[2], hy = d[3], c = d[4],
+              s = d[5], ns = -s;
+  const float xa = (float)x0 + 0.5f, xb = (float)(x0 + BLK - 1) + 0.5f;
+  const float ya = (float)y0 + 0.5f, yb = (float)(y0 + BLK - 1) + 0.5f;
+  const float lx_lo = local(c, s, c >= 0.0f ? xa : xb, s >= 0.0f ? ya : yb,
+                            cx, cy);
+  const float lx_hi = local(c, s, c >= 0.0f ? xb : xa, s >= 0.0f ? yb : ya,
+                            cx, cy);
+  const float ly_lo = local(ns, c, ns >= 0.0f ? xa : xb, c >= 0.0f ? ya : yb,
+                            cx, cy);
+  const float ly_hi = local(ns, c, ns >= 0.0f ? xb : xa, c >= 0.0f ? yb : ya,
+                            cx, cy);
+  return lx_lo > hx || lx_hi < -hx || ly_lo > hy || ly_hi < -hy;
+}
+
+// one step of the walk: sprite row r under-composited at pixel (px, py)
+// if it covers it
 template <bool BILINEAR, bool BF16>
-__global__ void __launch_bounds__(THREADS) sprite_tiles(Args a) {
+__device__ __forceinline__ void walk_step(const Args& a, const float* r,
+                                          float px, float py, float& pr,
+                                          float& pg, float& pb, float& pa) {
+  const float dx = px - r[0], dy = py - r[1];
+  const float lx = r[4] * dx + r[5] * dy;
+  const float ly = -r[5] * dx + r[4] * dy;
+  if (!(fabsf(lx) <= r[2] && fabsf(ly) <= r[3])) return;
+  float tex[4] = {1.0f, 1.0f, 1.0f, 1.0f};
+  if (r[14] >= 0.0f) sample<BILINEAR, BF16>(a, r, px, py, tex);
+  const float al = tex[3] * r[9];
+  const float t_ = 1.0f - pa;
+  pr = pr + t_ * tex[0] * r[6] * al;
+  pg = pg + t_ * tex[1] * r[7] * al;
+  pb = pb + t_ * tex[2] * r[8] * al;
+  pa = pa + t_ * al;
+}
+
+// MIN_CTAS: at most 40 registers a thread (measured on an H100, PERF.md:
+// fewer CTAs an SM, a per-warp second cull, or staging whole rows in the
+// cull pass were slower)
+template <bool BILINEAR, bool BF16>
+__global__ void __launch_bounds__(THREADS, MIN_CTAS) sprite_tiles(Args a) {
   __shared__ float L[CHUNK * ROWW];
-  const int tid = threadIdx.x;
+  __shared__ int warp_kept[WARPS];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int bx0 = blockIdx.x * BLK, by0 = blockIdx.y * BLK;
   const int x = bx0 + tid % BLK, y = by0 + tid / BLK;
   const bool in = x < a.W && y < a.H;
@@ -163,30 +234,34 @@ __global__ void __launch_bounds__(THREADS) sprite_tiles(Args a) {
   float pr = 0.0f, pg = 0.0f, pb = 0.0f, pa = 0.0f;
   for (int c0 = 0; c0 < cnt; c0 += CHUNK) {
     // every pixel opaque: the rest of the run adds exactly nothing (this
-    // barrier also closes the previous chunk before it is overwritten)
+    // barrier also closes the previous pass's walk before its rows and
+    // counts are overwritten)
     if (__syncthreads_and(!in || pa == 1.0f)) break;
-    const int n = min(CHUNK, cnt - c0);
-    for (int i = tid; i < n * ROWW; i += THREADS) {
-      const int k = i / ROWW, f = i - k * ROWW;
-      const int row = a.pair[base + cnt - 1 - c0 - k];
-      L[i] = a.pk[(size_t)row * ROWW + f];
+    // the cull: listed sprite c0 + tid from the front
+    const float* d = nullptr;
+    bool keep = false;
+    if (c0 + tid < cnt) {
+      d = a.pk + (size_t)a.pair[base + cnt - 1 - c0 - tid] * ROWW;
+      keep = !outside_block(d, bx0, by0);
+    }
+    const unsigned ball = __ballot_sync(0xffffffffu, keep);
+    if (lane == 0) warp_kept[warp] = __popc(ball);
+    __syncthreads();
+    int k = __popc(ball & ((1u << lane) - 1u)), n = 0;
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w) {
+      const int c = warp_kept[w];
+      k += w < warp ? c : 0;
+      n += c;
+    }
+    if (keep) {  // stage the survivor's row in order
+#pragma unroll
+      for (int f = 0; f < ROWW; ++f) L[k * ROWW + f] = d[f];
     }
     __syncthreads();
     for (int j = 0; j < n; ++j) {
       if (pa == 1.0f) break;
-      const float* d = L + j * ROWW;
-      const float dx = px - d[0], dy = py - d[1];
-      const float lx = d[4] * dx + d[5] * dy;
-      const float ly = -d[5] * dx + d[4] * dy;
-      if (!(fabsf(lx) <= d[2] && fabsf(ly) <= d[3])) continue;
-      float tex[4] = {1.0f, 1.0f, 1.0f, 1.0f};
-      if (d[14] >= 0.0f) sample<BILINEAR, BF16>(a, d, px, py, tex);
-      const float al = tex[3] * d[9];
-      const float t_ = 1.0f - pa;
-      pr = pr + t_ * tex[0] * d[6] * al;
-      pg = pg + t_ * tex[1] * d[7] * al;
-      pb = pb + t_ * tex[2] * d[8] * al;
-      pa = pa + t_ * al;
+      walk_step<BILINEAR, BF16>(a, L + j * ROWW, px, py, pr, pg, pb, pa);
     }
   }
   if (in) {

@@ -10,7 +10,8 @@ back-to-front `Transparent2d` phase).
   pair expansion, the stable tile sort and each tile's run.
 - `sprite_tiles`: kernel B4 (`csrc/sprite_tiles.cu`, replacing
   `_kernel` / `_kernel_batched` of raster2d_pallas.py) on CUDA tensors;
-  its plain PyTorch version `_sprite_tiles_plain` on CPU tensors.
+  its plain PyTorch version `_sprite_tiles_plain` on CPU tensors;
+  `sprite_in_block` replays the kernel's per-block cull.
 The two together are the port of the JAX package's
 `raster_sprites_pallas` (render/sprite.py calls them; one kernel covers
 its `sprite_batch` bodies).
@@ -219,6 +220,41 @@ def sample_tiles(atlas, d, px, py, bilinear, bf16):
     return out
 
 
+BLOCK = 16    # kernel B4's CTA: a 16 x 16 pixel block inside a bin tile
+
+
+def sprite_in_block(d, x0, y0):
+    """Which (block, sprite) pairs kernel B4 walks, in plain PyTorch (for
+    tests and measurement; the plain version walks every listed sprite at
+    every pixel of its tile). d: the sprites' rows as 17 broadcasting
+    tensors; x0, y0 the block's first column and row (it covers BLOCK x
+    BLOCK pixels), int tensors broadcasting against them.
+
+    A sprite is kept unless, in the walk's arithmetic (lx = cos*(px - cx)
+    + sin*(py - cy), ly = -sin*(px - cx) + cos*(py - cy)), lx lies wholly
+    past one side of [-hx, hx] or ly of [-hy, hy] at the block's pixel
+    centres where it is least and greatest: the corners the signs of its
+    coefficients pick. Each is monotone in px and in py (rounding is
+    monotone), so a dropped sprite covers no pixel of the block; a NaN
+    keeps it (csrc/sprite_tiles.cu)."""
+    xa = x0.to(torch.float32) + 0.5
+    xb = (x0 + (BLOCK - 1)).to(torch.float32) + 0.5
+    ya = y0.to(torch.float32) + 0.5
+    yb = (y0 + (BLOCK - 1)).to(torch.float32) + 0.5
+    cx, cy, hx, hy, cs, sn = d[:6]
+
+    def span(a, b):        # a*(px - cx) + b*(py - cy) at its least and most
+        lo = a * (torch.where(a >= 0, xa, xb) - cx) + \
+            b * (torch.where(b >= 0, ya, yb) - cy)
+        hi = a * (torch.where(a >= 0, xb, xa) - cx) + \
+            b * (torch.where(b >= 0, yb, ya) - cy)
+        return lo, hi
+
+    lx_lo, lx_hi = span(cs, sn)
+    ly_lo, ly_hi = span(-sn, cs)
+    return ~((lx_lo > hx) | (lx_hi < -hx) | (ly_lo > hy) | (ly_hi < -hy))
+
+
 def _sprite_tiles_plain(fb, pk, pair_sprite, starts, counts, atlas, *,
                         tile_h=32, tile_w=128, bilinear=True, bf16=False):
     """Plain PyTorch version of B4: every pixel of every tile at once, one
@@ -279,7 +315,8 @@ def sprite_tiles(fb, pk, pair_sprite, starts, counts, atlas, *, tile_h=32,
 
     CPU tensors run the plain PyTorch version; CUDA tensors launch
     `csrc/sprite_tiles.cu` (one thread per pixel, 16x16 CTAs inside the
-    tile_h x tile_w bin tiles)."""
+    tile_h x tile_w bin tiles, each walking only the sprites
+    `sprite_in_block` keeps for it: the same bits)."""
     kw = dict(tile_h=tile_h, tile_w=tile_w, bilinear=bilinear, bf16=bf16)
     dev = _cuda.call_device(fb, pk, pair_sprite, starts, counts, atlas)
     if dev.type == "cpu":

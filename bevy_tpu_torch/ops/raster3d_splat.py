@@ -534,7 +534,9 @@ def composite_windows(depth, winner, windows, owner, meta, wvalid, *,
     64-bit key max of B1 (`order(dz) << 32 | (0xFFFFFFFE - w)`, the
     incoming value's low bits 0xFFFFFFFF) and a decode — the windows may
     run in any order. CPU tensors run the plain PyTorch version; CUDA
-    tensors launch `csrc/window_composite.cu` (one CTA a window)."""
+    tensors launch `csrc/window_composite.cu` (a persistent grid over the
+    valid windows, one warp a 2-row group; an empty pixel, dz <= 0, loads
+    no depth unless some incoming depth is below 0)."""
     dev = _cuda.call_device(depth, winner, windows, owner, meta, wvalid)
     if dev.type == "cpu":
         return _composite_plain(depth, winner, windows, owner, meta, wvalid,
@@ -547,9 +549,13 @@ def composite_windows(depth, winner, windows, owner, meta, wvalid, *,
     _cuda.require(owner, "owner", torch.int32, (nb,))
     _cuda.require(meta, "meta", torch.int32, (nb,))
     _cuda.require(wvalid, "wvalid", torch.bool, (nb,))
-    if nb >= 0xFFFFFFFE or cs > (1 << ID_BITS):
+    if nb >= 0xFFFFFFFE or cs > (1 << ID_BITS) or \
+            nb * ((win_h + 1) // 2) > 0x7FFFFFFF:
         raise ValueError("composite_windows: unsupported shape")
-    key = torch.empty((H, W), dtype=torch.int64, device=dev)
+    if windows.data_ptr() % 16:
+        raise ValueError("composite_windows: windows must be 16-byte "
+                         "aligned (the kernel loads 4 columns at once)")
+    key = torch.empty(H * W + 1, dtype=torch.int64, device=dev)
     dep_out = torch.empty_like(depth)
     win_out = torch.empty_like(winner)
     lib = _cuda.library()

@@ -68,11 +68,15 @@ def jax_windows():
     return _jax_windows()
 
 
-@pytest.mark.parametrize("incoming", ["clear", "prefilled"])
+@pytest.mark.parametrize("incoming", ["clear", "prefilled", "negative"])
 def test_composite_plain_bit_equal_to_jax_interpret(jax_windows, incoming):
     """Depth and winner bit for bit. `prefilled` starts from a framebuffer
     whose depth equals some windows' packed values exactly (the incoming
-    value must win those ties) and beats others."""
+    value must win those ties) and beats others. `negative` starts from
+    depths below 0 on half the pixels (and -0.0 on a tenth): there an
+    empty window pixel (dz = 0, "no hit") beats the depth and is written,
+    as the reference's strict `dz > depth` does (B6 skips empty pixels only
+    when no depth is below 0)."""
     _, _, _, windows, owner, meta, wvalid = jax_windows
     rng = np.random.RandomState(1)
     depth = np.zeros((H, W), np.float32)
@@ -82,6 +86,11 @@ def test_composite_plain_bit_equal_to_jax_interpret(jax_windows, incoming):
         depth[:WIN_H] = np.where(rng.uniform(size=hit.shape) < 0.5, hit,
                                  rng.uniform(0, 1, hit.shape))[:, :W]
         winner[:WIN_H] = 5.0
+    elif incoming == "negative":
+        u = rng.uniform(size=(H, W))
+        depth = np.where(u < 0.5, -rng.uniform(0.01, 1, (H, W)),
+                         np.where(u < 0.6, -0.0, 0.0)).astype(np.float32)
+        winner[:] = 5.0
     dj, wj = jsplat.composite_windows(
         jnp.asarray(depth), jnp.asarray(winner), jnp.asarray(windows),
         jnp.asarray(owner), jnp.asarray(meta), jnp.asarray(wvalid),
@@ -95,6 +104,9 @@ def test_composite_plain_bit_equal_to_jax_interpret(jax_windows, incoming):
     assert np.array_equal(wp.numpy().view(np.int32),
                           np.asarray(wj).view(np.int32))
     assert (wp.numpy() >= 0).mean() > 0.05
+    if incoming == "negative":    # empty pixels wrote over depths below 0
+        wrote_empty = (depth < 0) & (dp.numpy() == 0) & (wp.numpy() != 5.0)
+        assert wrote_empty.sum() > 100
     assert splat.composite_windows.launches == 0       # CPU: plain version
     assert _cuda._Loaded.lib is None
 

@@ -12,7 +12,8 @@ seed with numpy).
   meets once (the variant code paths are independent per flag); tall
   multi-band sprites, equal-z ties and the opaque early skip on the
   bevymark variant.
-- B5's per-warp cull (`sprite_in_warp`) drops no covered pair.
+- B4's per-block cull (`sprite_in_block`) and B5's per-warp cull
+  (`sprite_in_warp`) drop no covered pair.
 
 Tolerance 1e-5 (abs) where the rounding points are mirrored; the port
 measures ~1e-6 (XLA's CPU backend contracts some multiply-adds into
@@ -155,6 +156,59 @@ def test_b4_tile_overflow_keeps_front_most():
     err, _, tst = _b4(scene, max_per_tile=100)
     assert err.max() < TOL, err.max()
     assert tst["tile_overflow"] > 0
+
+
+def _b4_cull_pairs(fb, pk, pair, starts, counts, tile_h=32, tile_w=128):
+    """(covered, kept) (pair, tile_h, tile_w) bools over every listed
+    (tile, sprite) pair: the in-frame pixels of the tile the sprite covers,
+    in the walk's arithmetic, and those of the 16 x 16 blocks
+    sprite_in_block keeps it for."""
+    _, H, W = fb.shape
+    ntx = (W + tile_w - 1) // tile_w
+    c = counts.long()
+    tile = torch.repeat_interleave(torch.arange(c.shape[0]), c)
+    rank = torch.arange(tile.shape[0]) - (torch.cumsum(c, 0) - c)[tile]
+    row = pair[(starts.long()[tile] + rank)].long()
+    d = [pk[row, k][:, None, None] for k in range(17)]
+    x = ((tile % ntx) * tile_w)[:, None, None] + torch.arange(tile_w)
+    y = ((tile // ntx) * tile_h)[:, None, None] + \
+        torch.arange(tile_h)[:, None]
+    dx, dy = (x.float() + 0.5) - d[0], (y.float() + 0.5) - d[1]
+    covered = (torch.abs(d[4] * dx + d[5] * dy) <= d[2]) & \
+        (torch.abs(-d[5] * dx + d[4] * dy) <= d[3]) & (x < W) & (y < H)
+    b = raster2d.BLOCK
+    kept = raster2d.sprite_in_block(d, x // b * b, y // b * b)
+    return covered, kept
+
+
+@pytest.mark.parametrize("scene", ["axis", "rot", "overflow",
+                                   "straddle_axis", "straddle_rot"])
+def test_sprite_in_block_drops_only_uncovered_pairs(scene):
+    """B4's per-block cull (sprite_in_block, the kernel's decisions in
+    plain PyTorch) drops no listed (pixel, sprite) pair the walk finds
+    covered, and keeps fewer (block, sprite) pairs than the tiles list:
+    axis-aligned and rotated scenes, an overflowing tile (front-most 128
+    kept), and sprites centred within 2 px of 32-column boundaries (block
+    edges too) with half-sizes down to 0.2 px."""
+    from torch_scenes import b5_straddle_scene, sprite_scene
+    bin_kw = {}
+    if scene == "axis":
+        fb, p, _ = sprite_scene(0, "cpu")
+    elif scene == "rot":
+        fb, p, _ = sprite_scene(1, "cpu", rot=True)
+    elif scene == "overflow":
+        fb, p, _ = sprite_scene(3, "cpu", n=300, big=True)
+        bin_kw = dict(max_per_tile=100)
+    else:
+        fb, p, _ = b5_straddle_scene(10, "cpu", scene == "straddle_rot")
+    pk, pair, starts, counts, st = raster2d.bin_sprites(
+        p, fb.shape[1], fb.shape[2], **bin_kw)
+    assert int(st["tile_overflow"] > 0) == (scene == "overflow")
+    covered, kept = _b4_cull_pairs(fb, pk, pair, starts, counts)
+    assert int(covered.sum()) > 0
+    assert int((covered & ~kept).sum()) == 0
+    blocks = kept[:, ::raster2d.BLOCK, ::raster2d.BLOCK]
+    assert int(blocks.sum()) < blocks.numel()
 
 
 # -- B5 -------------------------------------------------------------------
