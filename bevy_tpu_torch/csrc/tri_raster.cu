@@ -24,7 +24,8 @@
 // pair of a tile's list instead — 18 FP32 operations (corners) or 15
 // (planes) each — and at the many_cubes density (up to 3,072 triangles a
 // 16x128 tile, a few pixels each) about 1% of those pairs are inside. So
-// B7 culls the list to what can touch each CTA's block before it walks.
+// both cull the list to what can touch each CTA's block before they walk,
+// and shade each pixel's winner once.
 //
 // B7 (corners), the culled walk:
 // - The list is culled 256 entries a pass, one thread an entry: the thread
@@ -48,10 +49,10 @@
 //   margin) against 2^-19 = 32 * 2^-24 of that product; an entry at or
 //   below it is a sliver, kept in every block with the full row range.
 //   A sliver's float edges can read inside beyond its AABB: a 53-px one,
-//   |area2| 5e-5, reads inside 18 px past its AABB (chip_smoke.py's
-//   SLIVER_CORNERS). The tile binning has the same blind spot at tile edges
-//   (bin_tris, and the reference's): there it stays, as the reference
-//   behaviour. chip_smoke.py counts the dropped pairs that were inside
+//   |area2| 5e-5, reads inside 18 px past its AABB (SLIVER_CORNERS in
+//   tests/torch_scenes.py). The tile binning has the same blind spot at
+//   tile edges (bin_tris, and the reference's): there it stays, as the
+//   reference behaviour. chip_smoke.py counts the dropped pairs that were inside
 //   and asserts 0.
 // - A warp ballot, a popcount prefix and a scan of the eight warps' totals
 //   compact the survivors in list order. The culling thread writes its
@@ -74,10 +75,43 @@
 // - The next pass's corners are not prefetched during the walk: the cull
 //   reads 28 B an entry from L2, and the walk dominates.
 //
-// B8 (planes, planes_gbuf) keeps its first design: records are read by id
-// from the (T, 40) table through the tile's run in the sorted pair list, 64
-// at a time into shared memory (33 floats each), and every pixel walks the
-// whole list.
+// B8 (planes, planes_gbuf), the culled walk:
+// - Plane records carry no corners, so B7's AABB test has nothing to test.
+//   The edges themselves are planes e(px, py) = a*px + b*py + c, which the
+//   walk evaluates as (a*px + b*py) + c with each product and sum rounded
+//   (--fmad=false). Rounding is monotone, so over a block's pixel centres
+//   e is least at the corner picked by the signs of a and b, and the cull
+//   evaluates it there in the same arithmetic: if it reads > 0, every
+//   centre of the block reads > 0 and is outside, exactly as the walk
+//   finds it. So the cull needs no margin and no sliver rule (a sliver's
+//   own arithmetic is what is tested), and a NaN there keeps the entry.
+// - The list is culled 256 entries a pass, one thread an entry reading only
+//   the 9 edge floats of its record. An entry kept for the 16x16 block is
+//   tested again over each warp's two rows (the same corner test, rows
+//   picked by b's sign), giving a mask of the warps whose rows some pixel
+//   of it could be inside; an entry with no such warp is dropped. (A warp
+//   that passes implies the block passes: its rows are a subset.)
+// - Survivors are compacted in list order (ballot, popcount, a scan of the
+//   eight warps' totals, as B7) and staged as their 9 edge and 3 depth
+//   floats (three 16-byte loads), their table row and their warp mask; a
+//   warp skips a survivor whose mask misses it (uniform within the warp).
+// - The cull is a chain of dependent loads (run, pair index, record) a
+//   pass, so it is pipelined: a pass's records are loaded, and the next
+//   pass's pair indices, while the previous pass is walked.
+// - The walk is the reference's, one thread a pixel in list order with a
+//   strict z > dep, keeping the row of the last triangle that passed; the
+//   pixel shades that winner once at the end from its record in global
+//   memory (fields 12:31 forward, 12:33 for planes_gbuf) in the same
+//   arithmetic: the bits the reference's last taken pair wrote, which the
+//   plain version also computes by shading only the winner. At 160k cubes
+//   a covered pixel passed the depth test ~13 times, and the first design
+//   shaded each time (three IEEE divisions and an rsqrt); it also staged
+//   all 33 floats of every listed record.
+// - Measured on an H100 at the 160k cubes (variant calls, PERF.md): the
+//   cull alone takes a large share of the call; the pipeline and at most
+//   48 registers (5 CTAs an SM) each made the call faster, 40 registers
+//   spilled; the warp mask saves no time there (a variant without it was
+//   as fast), since the plane cull already keeps few entries a block.
 //
 // Both: a pixel outside a triangle's edges, or behind the depth, skips the
 // rest of that triangle (the plain version computes it and discards it
@@ -100,8 +134,8 @@ namespace {
 constexpr int BLK = 16;
 constexpr int THREADS = BLK * BLK;
 constexpr int NWARPS = THREADS / 32;
-constexpr int CHUNK = 64;      // plane records staged per pass (B8)
-constexpr int SCAN = THREADS;  // corner list entries culled per pass (B7)
+constexpr int SCAN = THREADS;  // list entries culled per pass
+constexpr int PLANES_CTAS = 5;  // B8's CTAs an SM: at most 48 registers
 constexpr int F_PAD = 40;      // table row width
 constexpr float SLIVER = 0x1p-19f;  // raster3d_tris.SLIVER
 enum { CORNERS = 0, PLANES = 1, PLANES_GBUF = 2 };
@@ -290,68 +324,150 @@ __global__ void __launch_bounds__(THREADS) tri_corners(Args a) {
   store<4>(a, p, v, dep);
 }
 
-// B8: plane records, every pixel walks the tile's whole list.
+// B8: plane records, the list culled to the CTA's block by each edge's least
+// corner and, per warp, to its two rows; the walk keeps the winner's row,
+// shaded once at the end.
 template <int LAYOUT, bool SCISSOR>
-__global__ void __launch_bounds__(THREADS) tri_planes(Args a) {
-  constexpr int F = 33;                                // fields read
+__global__ void __launch_bounds__(THREADS, PLANES_CTAS) tri_planes(Args a) {
   constexpr int NW = LAYOUT == PLANES_GBUF ? 12 : 4;  // planes written
-  __shared__ float L[CHUNK * F];
-  const int tid = threadIdx.x;
+  __shared__ float4 E[3 * SCAN];    // survivors' edge and depth planes
+  __shared__ int S[SCAN];           // survivors' table rows
+  __shared__ unsigned char M[SCAN];  // survivors' warps (a bit a warp)
+  __shared__ int wtot[NWARPS];
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const Px p = pixel_of<SCISSOR>(a);
   const int t = (blockIdx.y * BLK / a.tile_h) * a.ntx +
                 blockIdx.x * BLK / a.tile_w;
   const int cnt = a.counts[t];
   const int base = a.starts[t];
-  const float* lt = a.light;
   const float px = p.px, py = p.py;
+  // the block's least and greatest pixel centres
+  const float x0 = (float)(blockIdx.x * BLK) + 0.5f, x1 = x0 + (BLK - 1);
+  const float y0 = (float)(blockIdx.y * BLK) + 0.5f, y1 = y0 + (BLK - 1);
+  const unsigned bit = 1u << warp;
   float dep = p.in ? a.depth[p.pix] : 0.0f;
-  float v[NW];
-#pragma unroll
-  for (int k = 0; k < NW; ++k) v[k] = p.in ? a.fb[k * p.plane + p.pix] : 0.0f;
+  int won = -1;  // the table row of the triangle this pixel took last
 
-  for (int c0 = 0; c0 < cnt; c0 += CHUNK) {
-    __syncthreads();   // the previous chunk is done before it is overwritten
-    const int n = min(CHUNK, cnt - c0);
-    for (int i = tid; i < n * F; i += THREADS) {
-      const int k = i / F, f = i - k * F;
-      const int row = a.pair[base + c0 + k];
-      L[i] = a.table[(size_t)row * F_PAD + f];
+  // entry i's 9 edge and 3 depth floats (16-byte loads), from its row
+  auto fetch = [&](int i, int row, float4* e) {
+    if (i < cnt) {
+      const float4* r =
+          reinterpret_cast<const float4*>(a.table + (size_t)row * F_PAD);
+      e[0] = __ldg(r);
+      e[1] = __ldg(r + 1);
+      e[2] = __ldg(r + 2);
+    }
+  };
+  // a pipeline: this pass's records in registers, the next pass's row
+  // index loaded; both are issued during the previous pass's walk
+  int row = tid < cnt ? a.pair[base + tid] : 0;
+  int row_next = tid + SCAN < cnt ? a.pair[base + tid + SCAN] : 0;
+  float4 e[3];
+  fetch(tid, row, e);
+
+  for (int c0 = 0; c0 < cnt; c0 += SCAN) {
+    __syncthreads();  // the previous pass is walked
+    const int i = c0 + tid;
+    unsigned mask = 0;
+    if (i < cnt) {
+      const float d[9] = {e[0].x, e[0].y, e[0].z, e[0].w, e[1].x,
+                          e[1].y, e[1].z, e[1].w, e[2].x};
+      // each edge a*px + b*py + c at the block's least corner, in the
+      // walk's arithmetic: > 0 there reads outside at every centre
+      float ax[3];
+      bool keep = true;
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        ax[k] = d[3 * k] * (d[3 * k] >= 0.0f ? x0 : x1);
+        if (ax[k] + d[3 * k + 1] * (d[3 * k + 1] >= 0.0f ? y0 : y1) +
+                d[3 * k + 2] >
+            0.0f)
+          keep = false;
+      }
+      // then over each warp's two rows
+      if (keep)
+#pragma unroll
+        for (int w = 0; w < NWARPS; ++w) {
+          const float r0 = y0 + (float)(2 * w);
+          bool in = true;
+#pragma unroll
+          for (int k = 0; k < 3; ++k)
+            if (ax[k] + d[3 * k + 1] * (d[3 * k + 1] >= 0.0f ? r0 : r0 + 1.0f) +
+                    d[3 * k + 2] >
+                0.0f)
+              in = false;
+          mask |= (unsigned)in << w;
+        }
+    }
+    const unsigned ball = __ballot_sync(0xffffffffu, mask != 0);
+    if (lane == 0) wtot[warp] = __popc(ball);
+    __syncthreads();
+    int m = 0, pre = 0;
+#pragma unroll
+    for (int w = 0; w < NWARPS; ++w) {
+      pre += w < warp ? wtot[w] : 0;
+      m += wtot[w];
+    }
+    if (mask != 0) {
+      const int k = pre + __popc(ball & ((1u << lane) - 1u));
+      E[3 * k] = e[0];
+      E[3 * k + 1] = e[1];
+      E[3 * k + 2] = e[2];
+      S[k] = row;
+      M[k] = (unsigned char)mask;
     }
     __syncthreads();
+    // the next pass's records and the row index after them, in flight
+    // during this pass's walk
+    row = row_next;
+    fetch(i + SCAN, row, e);
+    row_next = i + 2 * SCAN < cnt ? a.pair[base + i + 2 * SCAN] : 0;
     if (!p.live) continue;
-    for (int j = 0; j < n; ++j) {
-      const float* d = L + j * F;
-      if (!(d[0] * px + d[1] * py + d[2] <= 0.0f &&
-            d[3] * px + d[4] * py + d[5] <= 0.0f &&
-            d[6] * px + d[7] * py + d[8] <= 0.0f))
+    for (int j = 0; j < m; ++j) {
+      if (!(M[j] & bit)) continue;  // misses this warp's rows
+      const float4 g0 = E[3 * j], g1 = E[3 * j + 1], g2 = E[3 * j + 2];
+      if (!(g0.x * px + g0.y * py + g0.z <= 0.0f &&
+            g0.w * px + g1.x * py + g1.y <= 0.0f &&
+            g1.z * px + g1.w * py + g2.x <= 0.0f))
         continue;
-      const float z = d[9] * px + d[10] * py + d[11];
+      const float z = g2.y * px + g2.z * py + g2.w;
       if (!(z > dep)) continue;
-      const float iw = clamp_min(d[12] * px + d[13] * py + d[14], 1e-12f);
-      const float nx = (d[15] * px + d[16] * py + d[17]) / iw;
-      const float ny = (d[18] * px + d[19] * py + d[20]) / iw;
-      const float nz = (d[21] * px + d[22] * py + d[23]) / iw;
-      const float* rgba = d + 24;
-      const float* emi = d + 28;
-      const float inv_len =
-          rsqrtf(clamp_min(nx * nx + ny * ny + nz * nz, 1e-12f));
-      if constexpr (LAYOUT == PLANES_GBUF) {
-        v[0] = rgba[0];
-        v[1] = rgba[1];
-        v[2] = rgba[2];
-        v[3] = rgba[3];
-        v[4] = nx * inv_len;
-        v[5] = ny * inv_len;
-        v[6] = nz * inv_len;
-        v[7] = emi[0];
-        v[8] = emi[1];
-        v[9] = emi[2];
-        v[10] = d[31];
-        v[11] = d[32];
-      } else {
-        forward_shade(nx, ny, nz, inv_len, rgba, emi, lt, v);
-      }
       dep = z;
+      won = S[j];
+    }
+  }
+
+  float v[NW];
+  if (won < 0) {
+#pragma unroll
+    for (int k = 0; k < NW; ++k)
+      v[k] = p.in ? a.fb[k * p.plane + p.pix] : 0.0f;
+  } else {
+    // the winner's shade, from its record, in the reference body's order
+    const float* d = a.table + (size_t)won * F_PAD;
+    const float iw = clamp_min(d[12] * px + d[13] * py + d[14], 1e-12f);
+    const float nx = (d[15] * px + d[16] * py + d[17]) / iw;
+    const float ny = (d[18] * px + d[19] * py + d[20]) / iw;
+    const float nz = (d[21] * px + d[22] * py + d[23]) / iw;
+    const float* rgba = d + 24;
+    const float* emi = d + 28;
+    const float inv_len =
+        rsqrtf(clamp_min(nx * nx + ny * ny + nz * nz, 1e-12f));
+    if constexpr (LAYOUT == PLANES_GBUF) {
+      v[0] = rgba[0];
+      v[1] = rgba[1];
+      v[2] = rgba[2];
+      v[3] = rgba[3];
+      v[4] = nx * inv_len;
+      v[5] = ny * inv_len;
+      v[6] = nz * inv_len;
+      v[7] = emi[0];
+      v[8] = emi[1];
+      v[9] = emi[2];
+      v[10] = d[31];
+      v[11] = d[32];
+    } else {
+      forward_shade(nx, ny, nz, inv_len, rgba, emi, a.light, v);
     }
   }
   store<NW>(a, p, v, dep);

@@ -40,7 +40,7 @@ _SIGNATURES = {
     "bt_splat_fused": [_P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                        _P, _P, _P, _P],
     "bt_stream_raster": [_P, _I, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I,
-                         _P, _P, _P],
+                         _P, _P, _P, _I, _P, _P, _P],
     "bt_deferred_shade": [_P, _I, _P, _P, _P, _I, _I, _P, _P, _I, _I, _I,
                           _I, _I, _I, _P, _P],
     "bt_sprite_tiles": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,

@@ -212,6 +212,48 @@ def tri_in_block(table, pair_tri, starts, counts, width, *, tile_h=32,
     return (hit | sliver[:, None, None, :]) & listed[:, None, None, :]
 
 
+def plane_in_block(table, pair_tri, starts, counts, width, *, tile_h=32,
+                   tile_w=128, block_h=BLOCK):
+    """(T, tile_h // block_h, tile_w // BLOCK, S) bool, S = the longest
+    list: which listed entries of each tile kernel B8 walks for each
+    block_h x BLOCK block of it, in plain PyTorch (for tests and
+    measurement; the plain version walks the whole list). B8 culls each
+    CTA's BLOCK x BLOCK block so (the default), and each warp's rows with
+    block_h=WARP_ROWS: those are the entries a warp walks.
+
+    An entry is kept iff none of its record's three edge planes (table
+    cols 0:9, inside = all <= 0) reads > 0 at the block's least corner:
+    the pixel centre picked by the signs of the plane's a and b, in the
+    walk's arithmetic (a*px + b*py) + c. Each product and sum is rounded,
+    and rounding is monotone, so that corner is where the edge reads least
+    over the block's centres: a dropped entry reads outside at every
+    centre of the block, slivers included. A NaN keeps the entry."""
+    nt = counts.shape[0]
+    ns = int(counts.max()) if nt else 0
+    dev = table.device
+    ntx = _pad_to(width, tile_w) // tile_w
+    pmax = max(pair_tri.shape[0] - 1, 0)
+    slot = torch.clamp(starts[:, None] + torch.arange(
+        ns, dtype=torch.int32, device=dev)[None, :], max=pmax).long()
+    e = table[pair_tri[slot].long(), :9][:, None, None]     # (T, 1, 1, S, 9)
+    t = torch.arange(nt, device=dev)
+    bx = ((t % ntx) * tile_w)[:, None] + \
+        torch.arange(0, tile_w, BLOCK, device=dev)[None, :]
+    by = ((t // ntx) * tile_h)[:, None] + \
+        torch.arange(0, tile_h, block_h, device=dev)[None, :]
+    x0 = (bx.to(torch.float32) + 0.5)[:, None, :, None]
+    y0 = (by.to(torch.float32) + 0.5)[:, :, None, None]
+    x1, y1 = x0 + float(BLOCK - 1), y0 + float(block_h - 1)
+    keep = (torch.arange(ns, device=dev)[None, :] < counts[:, None]) \
+        [:, None, None, :]
+    for k in range(3):
+        a, b, c = e[..., 3 * k], e[..., 3 * k + 1], e[..., 3 * k + 2]
+        least = a * torch.where(a >= 0, x0, x1) + \
+            b * torch.where(b >= 0, y0, y1) + c
+        keep = keep & ~(least > 0)
+    return keep
+
+
 def _light_with_scissor(light, scissor, height, width):
     """The (16,) light vector with the scissor rect [x0, y0, x1, y1) in
     slots 9:13 (the whole target when scissor is None). Each slot is set
@@ -385,6 +427,9 @@ def raster_tris(fb, depth, table, pair_tri, starts, counts, light,
     _cuda.require(starts, "starts", torch.int32, (nty * ntx,))
     _cuda.require(counts, "counts", torch.int32, (nty * ntx,))
     _cuda.require(lv, "light", torch.float32, (16,))
+    if layout != "corners" and table.data_ptr() % 16:
+        raise ValueError("raster_tris: plane records must be 16-byte "
+                         "aligned (B8 reads them as float4s)")
     out = torch.empty_like(fb)
     dep_out = torch.empty_like(depth)
     lib = _cuda.library()

@@ -220,8 +220,18 @@ def cluster_records(zrec, cs: int):
     return torch.nn.functional.pad(flat, (0, rec_w - cs * ZREC))
 
 
-def _raster_visbuf_plain(depth, winner, recs, cl_table, cl_counts, *,
-                         tile_h, tile_w, cs):
+def _scissor_vec(scissor, device):
+    """The scissor rect [x0, y0, x1, y1) as a (4,) f32 tensor on `device`,
+    each slot set in place (a fill, or a device copy of a 0-d tensor): no
+    blocking host read a call."""
+    sc = torch.empty(4, dtype=torch.float32, device=device)
+    for k, v in enumerate(scissor):
+        sc[k].fill_(v)
+    return sc
+
+
+def _raster_visbuf_plain(depth, winner, recs, cl_table, cl_counts,
+                         scissor=None, *, tile_h, tile_w, cs):
     """Plain PyTorch version of B2: every tile walks its cluster list in
     order, vectorized over tiles (one Python step per list slot and
     triangle)."""
@@ -245,6 +255,10 @@ def _raster_visbuf_plain(depth, winner, recs, cl_table, cl_counts, *,
           + tx0[:, None, None]) + 0.5
     py = (torch.arange(tile_h, device=dev).to(torch.float32)[None, :, None]
           + ty0[:, None, None]) + 0.5
+    sciss = True
+    if scissor is not None:
+        sc = _scissor_vec(scissor, dev)
+        sciss = (px >= sc[0]) & (py >= sc[1]) & (px < sc[2]) & (py < sc[3])
     for slot in range(int(cl_counts.max()) if nt else 0):
         active = slot < cl_counts
         rec = recs[torch.clamp(cl_table[:, slot], min=0)]   # (nt, rec_w)
@@ -258,7 +272,7 @@ def _raster_visbuf_plain(depth, winner, recs, cl_table, cl_counts, *,
                 (d(3) * px + d(4) * py + d(5) <= 0) & \
                 (d(6) * px + d(7) * py + d(8) <= 0)
             z = d(9) * px + d(10) * py + d(11)
-            zpass = hit[:, None, None] & inside & (z > dep)
+            zpass = hit[:, None, None] & sciss & inside & (z > dep)
             dep = torch.where(zpass, z, dep)
             win = torch.where(zpass, d(12), win)
 
@@ -269,26 +283,90 @@ def _raster_visbuf_plain(depth, winner, recs, cl_table, cl_counts, *,
     return from_tiles(dep), from_tiles(win)
 
 
-def raster_visbuf(depth, winner, recs, cl_table, cl_counts, *, tile_h=32,
-                  tile_w=128, cs=12):
+STREAM_BLOCK_H, STREAM_BLOCK_W = 16, 64    # kernel B2's CTA block
+
+
+def tri_in_stream_block(recs, cl_table, cl_counts, height, width, *,
+                        tile_h=32, tile_w=128, cs=12):
+    """(T, nby, nbx, S, cs) bool, nby = ceil(tile_h / STREAM_BLOCK_H), nbx =
+    ceil(tile_w / STREAM_BLOCK_W), S = the longest list: which (listed
+    cluster, triangle) entries of each tile kernel B2 walks in each
+    STREAM_BLOCK_H x STREAM_BLOCK_W block of it, in plain PyTorch (for
+    tests and measurement; the plain version walks the whole list).
+
+    An entry is kept iff its cluster is listed (id >= 0), it passes the
+    reference's tile test (valid id, screen AABB against the whole tile)
+    and no edge reads > 0 at the block's least corner: the centre of the
+    block's part in the tile and the frame picked by the signs of the
+    edge's d0 and d1, in the walk's arithmetic (d0*px + d1*py) + d2. Each
+    product and sum is rounded, and rounding is monotone, so that corner
+    is where the edge reads least over the block: a dropped entry reads
+    outside at every centre of the block. A NaN keeps the entry. A block
+    with no pixel in the frame keeps nothing."""
+    nty, ntx = _pad_to(height, tile_h) // tile_h, _pad_to(width, tile_w) \
+        // tile_w
+    nt = nty * ntx
+    dev = recs.device
+    bh, bw = STREAM_BLOCK_H, STREAM_BLOCK_W
+    nby, nbx = -(-tile_h // bh), -(-tile_w // bw)
+    ns = min(int(cl_counts.max()), cl_table.shape[1]) if nt else 0
+    ids = cl_table[:, :ns]
+    listed = (torch.arange(ns, device=dev)[None, :] < cl_counts[:, None]) & \
+        (ids >= 0)
+    d = recs[ids.clamp(min=0).long()][..., :cs * ZREC] \
+        .reshape(nt, ns, cs, ZREC)
+    ti = torch.arange(nt, device=dev)
+    tx0, ty0 = (ti % ntx) * tile_w, (ti // ntx) * tile_h
+    fx0, fy0 = tx0.to(torch.float32)[:, None, None], \
+        ty0.to(torch.float32)[:, None, None]
+    hit = listed[..., None] & (d[..., 12] >= 0) & (d[..., 15] > fx0) & \
+        (d[..., 13] < fx0 + float(tile_w)) & (d[..., 16] > fy0) & \
+        (d[..., 14] < fy0 + float(tile_h))
+    x0 = tx0[:, None] + torch.arange(nbx, device=dev)[None, :] * bw
+    y0 = ty0[:, None] + torch.arange(nby, device=dev)[None, :] * bh
+    x1 = torch.minimum(torch.minimum(x0 + bw, tx0[:, None] + tile_w),
+                       torch.full_like(x0, width))
+    y1 = torch.minimum(torch.minimum(y0 + bh, ty0[:, None] + tile_h),
+                       torch.full_like(y0, height))
+    cx0, cx1 = ((v.to(torch.float32) + 0.5)[:, None, :, None, None]
+                for v in (x0, x1 - 1))
+    cy0, cy1 = ((v.to(torch.float32) + 0.5)[:, :, None, None, None]
+                for v in (y0, y1 - 1))
+    keep = hit[:, None, None] & \
+        ((x0 < x1)[:, None, :] & (y0 < y1)[:, :, None])[..., None, None]
+    e = d[:, None, None]
+    for k in range(3):
+        a, b, c = e[..., 3 * k], e[..., 3 * k + 1], e[..., 3 * k + 2]
+        least = a * torch.where(a >= 0, cx0, cx1) + \
+            b * torch.where(b >= 0, cy0, cy1) + c
+        keep = keep & ~(least > 0)
+    return keep
+
+
+def raster_visbuf(depth, winner, recs, cl_table, cl_counts, scissor=None, *,
+                  tile_h=32, tile_w=128, cs=12):
     """Streaming-tile visbuffer raster (kernel B2; replaces the JAX
     package's `raster_visbuf` → `_stream_kernel`).
 
     depth/winner (H, W) f32; recs (NCL, rec_w) from cluster_records;
     cl_table (num_tiles, max_cl) int32 and cl_counts (num_tiles,) int32
-    from bin_clusters. Each tile walks its cluster list in order: per
-    triangle a screen-AABB reject, then the inclusive edge test
-    `(d0*px + d1*py) + d2 <= 0` on 3 edges and a strict `z > depth`.
-    Returns new (depth, winner f32 tri ids, -1 = none).
+    from bin_clusters; scissor None or the pixel rect (x0, y0, x1, y1)
+    (floats or 0-d tensors). Each tile walks its cluster list in order:
+    per triangle a screen-AABB reject, then the inclusive edge test
+    `(d0*px + d1*py) + d2 <= 0` on 3 edges and a strict `z > depth`, at
+    the pixels inside the scissor. Returns new (depth, winner f32 tri ids,
+    -1 = none); the inputs are never written.
 
     The kernel reads cluster rows by id from `recs` (the JAX kernel DMAs
     pre-gathered per-tile copies, tile_chunk_records — a block loading its
     own rows needs no copy). CPU tensors run the plain PyTorch version;
-    CUDA tensors launch `csrc/stream_raster.cu`."""
+    CUDA tensors launch `csrc/stream_raster.cu` (16 x 64-pixel CTAs, each
+    walking the entries tri_in_stream_block keeps for its block)."""
     dev = _cuda.call_device(depth, winner, recs, cl_table, cl_counts)
     if dev.type == "cpu":
         return _raster_visbuf_plain(depth, winner, recs, cl_table, cl_counts,
-                                    tile_h=tile_h, tile_w=tile_w, cs=cs)
+                                    scissor, tile_h=tile_h, tile_w=tile_w,
+                                    cs=cs)
     if depth.dim() != 2 or recs.dim() != 2 or cl_table.dim() != 2:
         raise ValueError("raster_visbuf: depth (H, W), recs (NCL, rec_w) "
                          "and cl_table (num_tiles, max_cl) expected")
@@ -298,20 +376,29 @@ def raster_visbuf(depth, winner, recs, cl_table, cl_counts, *, tile_h=32,
     rec_w = recs.shape[1]
     if nt != nty * ntx:
         raise ValueError(f"cl_table has {nt} tiles, the frame {nty * ntx}")
-    if cs * ZREC > rec_w or tile_h * tile_w > 4096:
-        raise ValueError("raster_visbuf: cluster or tile too large")
+    if not 1 <= cs <= 256 or cs * ZREC > rec_w:
+        raise ValueError("raster_visbuf: cs must be in 1..256 and cs * ZREC "
+                         "<= rec_w")
+    if rec_w % 4 or recs.data_ptr() % 16:
+        raise ValueError("raster_visbuf: recs rows must be 16-byte aligned "
+                         "(rec_w a multiple of 4), as cluster_records makes "
+                         "them")
     _cuda.require(depth, "depth", torch.float32)
     _cuda.require(winner, "winner", torch.float32, (H, W))
     _cuda.require(recs, "recs", torch.float32)
     _cuda.require(cl_table, "cl_table", torch.int32)
     _cuda.require(cl_counts, "cl_counts", torch.int32, (nt,))
-    dep_out = depth.clone()
-    win_out = winner.clone()
+    sc = None if scissor is None else _scissor_vec(scissor, dev)
+    dep_out = torch.empty_like(depth)
+    win_out = torch.empty_like(winner)
+    vec_ok = int(depth.data_ptr() % 16 == 0 and winner.data_ptr() % 16 == 0)
     lib = _cuda.library()
     with torch.cuda.device(dev):
         err = lib.bt_stream_raster(
             recs.data_ptr(), rec_w, cl_table.data_ptr(), max_cl,
             cl_counts.data_ptr(), nt, ntx, cs, tile_h, tile_w, H, W,
+            depth.data_ptr(), winner.data_ptr(),
+            None if sc is None else sc.data_ptr(), vec_ok,
             dep_out.data_ptr(), win_out.data_ptr(), _cuda.stream_ptr(depth))
     _cuda.check(err, "bt_stream_raster")
     raster_visbuf.launches += 1

@@ -10,7 +10,11 @@ source, all started together), then:
    scenes that stress its cull (tests/torch_scenes.py b1_cull_scenes:
    slivers across tile and frame edges; random planes with zeros,
    infinities and NaNs over some negative depths; 40 slots over 256- and
-   1200-row windows), with B1's cull counts for every call;
+   1200-row windows), with B1's and B2's cull counts for every call;
+   B2's scissor instantiation on the near-plane scene's calls with a rect
+   that cuts tiles; and B2, the scissor off and on, on two more scenes
+   (tests/torch_scenes.py b2_scenes: slivers; straddlers in a frame 202
+   wide, list walks of three passes);
 2. renders the many_cubes twin at the golden configuration (300 cubes,
    320x180, 2 frames) and compares it with tests/goldens/cubes_splat_f2.png
    (under 1% of pixels may drift by more than 8);
@@ -19,12 +23,13 @@ source, all started together), then:
 4. holds both of the full-size frame's B1 calls (the two window classes)
    against plain, bit for bit, with their cull counts and the share of
    window pixels in the owner's screen box, and times B1 (each class) and
-   B2 against their plain versions at the full-size shapes;
+   B2 (with its cull counts) against their plain versions at the
+   full-size shapes;
 5. renders the many_lights twin at the golden configuration (48 lights,
    256x144, 1 frame) against tests/goldens/lights_f1.png, holding B1 and
    B2 (bit for bit) and the deferred shade B3 (rtol 1e-5, atol 1e-5, the
    count of differing values printed) against their plain versions on
-   every call, with B3's cull counts;
+   every call, with B2's and B3's cull counts;
 6. shades a small scene with spot and rect lights, clearcoat and a
    non-default reflectance (the other B3 instantiations), and the same
    inputs without rect (the culled spot instantiation), B3 against plain,
@@ -34,7 +39,7 @@ source, all started together), then:
    and B3 were launched (B3 once a frame), that light_pair_overflow and the
    mesh pass's own tile overflow are 0;
 8. holds B1 and B2 (bit for bit) against their plain versions on every call
-   of one full-size many_lights frame, and times B3 against its plain
+   of one full-size many_lights frame, with B2's cull counts, and times B3 against its plain
    version at that frame's shapes, with B3's cull counts and its bound
    (recounted, the old figure beside it);
 9. holds the tile sprite raster (B4) against its plain version, bit for
@@ -90,7 +95,7 @@ source, all started together), then:
    bit, in all six instantiations (B7 corners, B8 planes and planes_gbuf,
    scissor off and on) on the scene of tests/test_torch_tris.py with two
    slivers added (SLIVER_CORNERS: their float edges read a pixel inside
-   past their AABB), with B7's cull counts;
+   past their AABB), with B7's and B8's cull counts;
 21. renders the many_cubes twin through the general route
    (`backend="xla"`, 300 cubes, 320x180, 3 frames) against
    tests/goldens/cubes_f3.png, B7 against plain on every call, with B7's
@@ -104,8 +109,9 @@ source, all started together), then:
    (20 frames timed);
 24. calls raster_batched_legacy forward and deferred (a 19-plane G-buffer)
    on the 160k cubes' clip-space corners and normals at 1280x720
-   (tile_h=16, max_per_tile=3072): B8 twice, each bit-equal to plain, the
-   calls and B8 timed beside its bound, overflows printed.
+   (tile_h=16, max_per_tile=3072): B8 twice, each bit-equal to plain, with
+   its cull counts, the calls and B8 timed beside its bound, overflows
+   printed.
 
 The shards of phases 15-19 all sit on the one card (a ShardMesh may repeat
 a device): their work runs one shard after another.
@@ -120,18 +126,19 @@ over the pairs inside the edges, and the record fields each triangle
 needs by what it does: its edges if listed, its depth if inside at some
 pixel, its shade if it wins one) is printed beside its time, with the
 old count (the reference's walk of every listed pair, whole records)
-beside it and B1's, B3's, B4's, B5's, B6's and B7's times before their
-redesign (BEFORE_REDESIGN_MS). Device times: 20 calls queued behind a spin kernel
+beside it and every kernel's time before its redesign
+(BEFORE_REDESIGN_MS). Device times: 20 calls queued behind a spin kernel
 between CUDA events (device_ms), with torch.profiler's split by kernel.
 
 The culls' counts: the (pixel, slot / light / sprite / window /
 triangle) pairs the reference's walk reaches, the pairs the kernel's cull
 keeps (replayed by `raster3d_splat.window_px_kept`,
-`shade.light_in_block`, `raster2d.sprite_in_block`,
-`raster2d_splat.sprite_in_warp`, `raster3d_tris.tri_in_block`: the same
-decisions in plain PyTorch, not read back from the kernel), the pairs
-that could write (B1: inside the edges, z above the depth), contribute
-(B3: win > 0), are covered (B4, B5) or are inside the edges (B7), and the
+`raster3d_visbuf.tri_in_stream_block`, `shade.light_in_block`,
+`raster2d.sprite_in_block`, `raster2d_splat.sprite_in_warp`,
+`raster3d_tris.tri_in_block` and `plane_in_block`: the same decisions in
+plain PyTorch, not read back from the kernel), the pairs that could
+write (B1: inside the edges, z above the depth), contribute (B3: win >
+0), are covered (B4, B5) or are inside the edges (B2, B7, B8), and the
 pairs the cull drops that would have, which must be 0 (asserted). B6's
 counts: the valid windows' in-frame pixels read, those not empty, those
 it loads a depth for and those that beat the depth.
@@ -190,10 +197,11 @@ SHADE_TOL = dict(rtol=1e-5, atol=1e-5)
 # the kernels' times before their redesign (PERF.md §6: NVIDIA H100 80GB
 # HBM3, 700.00 W; B1: the device time of this script's full-height call,
 # B3, B7: its events time, B5: the device time a frame of
-# examples/torch_bevymark.py --profile 10, B4, B6: this script's device
-# time, device_ms)
-BEFORE_REDESIGN_MS = {"B1": 0.4144, "B3": 2.0329, "B4": 0.1072,
-                      "B5": 0.5765, "B6": 0.1179, "B7": 1.8988}
+# examples/torch_bevymark.py --profile 10, B2, B4, B6, B8: this script's
+# device time, device_ms)
+BEFORE_REDESIGN_MS = {"B1": 0.4144, "B2": 0.0200, "B3": 2.0329,
+                      "B4": 0.1072, "B5": 0.5765, "B6": 0.1179,
+                      "B7": 1.8988, "B8": 1.5958}
 
 
 def log(*a):
@@ -522,6 +530,81 @@ def bound_b1(a, kw):
                     f"pixel of every window, {old_ms:.4f} ms ({old_by}); the "
                     f"tile cull keeps {n['kept']} of {n['old']} (plain "
                     f"replay)")
+
+
+def work_b2(a, kw):
+    """(pixel, triangle) pairs of one B2 call, over each tile's in-frame
+    pixels: {"evaluated": the reference's (every pixel of the tile, for
+    each listed triangle that passes its tile test), "kept": those in a
+    block the kernel's cull keeps the triangle for
+    (raster3d_visbuf.tri_in_stream_block's plain replay of it), "inside":
+    evaluated pairs inside the edges (the walk's arithmetic), "dropped":
+    inside but not kept (must be 0), "entries": (listed triangle, tile)
+    entries passing the tile test, "blocks": (block, triangle) entries
+    kept}."""
+    from bevy_tpu_torch.ops import raster3d_visbuf as vis
+    depth, _, recs, cl_table, cl_counts = a[:5]
+    cs, th, tw = kw["cs"], kw["tile_h"], kw["tile_w"]
+    H, W = depth.shape
+    dev = depth.device
+    keep = vis.tri_in_stream_block(recs, cl_table, cl_counts, H, W,
+                                   tile_h=th, tile_w=tw, cs=cs)
+    nt, nby, nbx, ns, _ = keep.shape
+    ntx = (W + tw - 1) // tw
+    ti = torch.arange(nt, device=dev)
+    xi = torch.arange(tw, device=dev)[None, None, :] + \
+        ((ti % ntx) * tw)[:, None, None]
+    yi = torch.arange(th, device=dev)[None, :, None] + \
+        ((ti // ntx) * th)[:, None, None]
+    frame = ((xi < W) & (yi < H))[:, None]                # (nt, 1, th, tw)
+    px, py = (xi.float() + 0.5)[:, None], (yi.float() + 0.5)[:, None]
+    blk = (torch.arange(th, device=dev) // vis.STREAM_BLOCK_H)[:, None] * \
+        nbx + (torch.arange(tw, device=dev) // vis.STREAM_BLOCK_W)[None, :]
+    kflat = keep.reshape(nt, nby * nbx, ns, cs)
+    ids = cl_table[:, :ns]
+    listed = (torch.arange(ns, device=dev)[None, :] < cl_counts[:, None]) \
+        & (ids >= 0)
+    rec = recs[ids.clamp(min=0).long()][..., :cs * 20] \
+        .reshape(nt, ns, cs, 20)
+    tx0 = ((ti % ntx) * tw).float()[:, None, None]
+    ty0 = ((ti // ntx) * th).float()[:, None, None]
+    hit = listed[..., None] & (rec[..., 12] >= 0) & (rec[..., 15] > tx0) & \
+        (rec[..., 13] < tx0 + tw) & (rec[..., 16] > ty0) & \
+        (rec[..., 14] < ty0 + th)
+    n = dict(evaluated=0, kept=0, inside=0, dropped=0,
+             entries=int(hit.sum()), blocks=int(keep.sum()))
+    npx = frame.sum((1, 2, 3))
+    for sl in range(ns):
+        d = rec[:, sl][:, :, None, None, :]               # (nt, cs, 1, 1, 20)
+        inside = hit[:, sl][:, :, None, None] & frame
+        for k in range(3):
+            inside = inside & (d[..., 3 * k] * px + d[..., 3 * k + 1] * py +
+                               d[..., 3 * k + 2] <= 0)
+        kpx = kflat[:, blk, sl].permute(0, 3, 1, 2) & frame
+        n["evaluated"] += int((hit[:, sl].sum(1) * npx).sum())
+        n["kept"] += int(kpx.sum())
+        n["inside"] += int(inside.sum())
+        n["dropped"] += int((inside & ~kpx).sum())
+    return n
+
+
+def b2_cull_line(name, a, kw):
+    """Log B2's cull counts (work_b2) for one call and assert that no
+    dropped pair was inside the edges."""
+    n = work_b2(a, kw)
+    log(f"B2 cull, {name} ({kw['tile_h']}x{kw['tile_w']} tiles, "
+        f"{int(a[4].sum())} listed clusters of {kw['cs']}): (pixel, "
+        f"triangle) pairs the reference evaluates {n['evaluated']}, the "
+        f"block cull keeps {n['kept']} (replayed in plain torch by "
+        f"raster3d_visbuf.tri_in_stream_block) "
+        f"({n['kept'] / max(n['evaluated'], 1):.2%}), inside the edges "
+        f"{n['inside']}, dropped but inside {n['dropped']}; (tile, "
+        f"triangle) entries past the tile test {n['entries']}, (block, "
+        f"triangle) entries kept {n['blocks']}")
+    if n["dropped"]:
+        raise AssertionError(f"B2's cull dropped {n['dropped']} pairs "
+                             f"inside the edges ({name})")
+    return n
 
 
 def bound_b2(a, kw):
@@ -993,11 +1076,11 @@ def work_tris(a, kw):
     "tris_inside" (inside the edges at some live pixel) and "tris_won" (the
     last taker of some pixel). Each in-frame pixel (inside the scissor,
     when one is given) walks its tile's list in order, as the plain
-    version does. For the corners layout also B7's cull, replayed in
-    plain torch (raster3d_tris.tri_in_block at the warps' WARP_ROWS
-    granularity, which implies the CTA's block test): "kept", the pairs
-    B7 walks, and "dropped", the pairs it drops that are inside the edges
-    (must be 0)."""
+    version does. Also the kernel's cull, replayed in plain torch at the
+    warps' WARP_ROWS granularity (raster3d_tris.tri_in_block for B7,
+    plane_in_block for B8; a warp's test implies the CTA's block test):
+    "kept", the pairs the kernel walks, and "dropped", the pairs it drops
+    that are inside the edges (must be 0)."""
     from bevy_tpu_torch.ops import raster3d_tris as rt
     fb, depth, table, pair_tri, starts, counts, light = a[:7]
     scissor = a[7] if len(a) > 7 else kw.get("scissor")
@@ -1018,10 +1101,9 @@ def work_tris(a, kw):
         live = live & (px >= x0) & (py >= y0) & (px < x1) & (py < y1)
     dep = torch.nn.functional.pad(depth, (0, ntx * tw - W, 0, nty * th - H)) \
         .reshape(nty, th, ntx, tw).permute(0, 2, 1, 3).reshape(-1, th, tw)
-    cull = layout == "corners"
-    if cull:
-        keep = rt.tri_in_block(table, pair_tri, starts, counts, W,
-                               tile_h=th, tile_w=tw, block_h=rt.WARP_ROWS)
+    replay = rt.tri_in_block if layout == "corners" else rt.plane_in_block
+    keep = replay(table, pair_tri, starts, counts, W, tile_h=th, tile_w=tw,
+                  block_h=rt.WARP_ROWS)
     n = dict(walked=0, inside=0, passing=0, kept=0, dropped=0)
     won = torch.full(live.shape, -1, dtype=torch.int64, device=dev)
     listed = torch.zeros(table.shape[0], dtype=torch.bool, device=dev)
@@ -1052,11 +1134,10 @@ def work_tris(a, kw):
         n["walked"] += int(on.sum())
         n["inside"] += int(hit.sum())
         n["passing"] += int(passing.sum())
-        if cull:
-            kpx = keep[..., s_].repeat_interleave(rt.WARP_ROWS, 1) \
-                .repeat_interleave(rt.BLOCK, 2)
-            n["kept"] += int((on & kpx).sum())
-            n["dropped"] += int((hit & ~kpx).sum())
+        kpx = keep[..., s_].repeat_interleave(rt.WARP_ROWS, 1) \
+            .repeat_interleave(rt.BLOCK, 2)
+        n["kept"] += int((on & kpx).sum())
+        n["dropped"] += int((hit & ~kpx).sum())
     n["covered"] = int((won >= 0).sum())
     n["live"] = int(live.sum())
     n["tris_listed"] = int(listed.sum())
@@ -1065,16 +1146,17 @@ def work_tris(a, kw):
     return n
 
 
-def b7_cull_line(name, n):
-    """Log B7's cull counts (work_tris) for one call and assert that no
-    dropped pair was inside the edges."""
-    log(f"B7 cull, {name}: (pixel, triangle) pairs the old walk reached "
+def tri_cull_line(kid, name, n):
+    """Log B7's or B8's cull counts (work_tris) for one call and assert
+    that no dropped pair was inside the edges."""
+    replay = "tri_in_block" if kid == "B7" else "plane_in_block"
+    log(f"{kid} cull, {name}: (pixel, triangle) pairs the old walk reached "
         f"{n['walked']}, the cull keeps {n['kept']} (replayed in plain "
-        f"torch by raster3d_tris.tri_in_block) "
+        f"torch by raster3d_tris.{replay}) "
         f"({n['kept'] / max(n['walked'], 1):.2%}), inside the edges "
         f"{n['inside']}, dropped but inside {n['dropped']}")
     if n["dropped"]:
-        raise AssertionError(f"B7's cull dropped {n['dropped']} pairs "
+        raise AssertionError(f"{kid}'s cull dropped {n['dropped']} pairs "
                              f"inside the edges ({name})")
 
 
@@ -1102,8 +1184,7 @@ def bound_tris(a, kw):
     layout = kw.get("layout", "corners")
     scissor = a[7] if len(a) > 7 else kw.get("scissor")
     n = work_tris(a, kw)
-    if layout == "corners":
-        b7_cull_line("full size", n)
+    tri_cull_line(kernel_id(kernel_fn("B7"), kw), f"full size ({layout})", n)
     f_edge, f_depth, f_shade = TRI_FIELDS[layout]
     other = 8 * (fb.numel() + depth.numel()) + 4 * int(counts.sum()) + \
         8 * counts.numel() + 64
@@ -1610,50 +1691,12 @@ def tri_scene(device, seed=0):
             for k, v in out.items()}
 
 
-# Two slivers in tri_scene's 320x180 frame (screen corners ax ay bx by cx
-# cy, |area2| 5e-5 and 2e-4 px^2, each across a 16-px block edge) whose
-# float edges read a pixel centre inside well past their AABB, in a tile
-# they are listed in: the first (106.5, 59.5), 18 px left of its AABB in
-# another 16x16 block; the second (239.5, 25.5), in its block but two
-# row pairs below. Only B7's sliver rule keeps them there.
-SLIVER_CORNERS = np.array(
-    [[138.91505, 49.391125, 177.12376, 37.475452, 124.366, 53.928356],
-     [233.24269, -10.04426, 229.31094, -32.37828, 238.75624, 21.27512]],
-    np.float32)
-SLIVER_INSIDE = ((106.5, 59.5), (239.5, 25.5))
-
-
-def with_slivers(setup, s):
-    """triangle_setup_corners' `setup` and tri_scene's `s` with the
-    SLIVER_CORNERS triangles appended (NDC depth 0.9, w 1, normal +z,
-    their own colours)."""
-    dev = setup["corners"].device
-    c = torch.tensor(SLIVER_CORNERS, device=dev).reshape(-1, 3, 2)
-    k = c.shape[0]
-    ax, ay, bx, by, cx, cy = c.reshape(k, 6).unbind(1)
-    area2 = (bx - ax) * (cy - ay) - (by - ay) * (cx - ax)
-    assert bool((area2 < -1e-12).all())
-    aabb = torch.stack([c[..., 0].amin(1), c[..., 1].amin(1),
-                        c[..., 0].amax(1), c[..., 1].amax(1)], 1)
-    add = dict(corners=c, depth=torch.full((k, 3), 0.9, device=dev),
-               inv_w=torch.ones((k, 3), device=dev), area2=area2,
-               valid=torch.ones(k, dtype=torch.bool, device=dev), aabb=aabb)
-    setup = {n: torch.cat([v, add[n]]) for n, v in setup.items()}
-    nrm = torch.zeros((k, 3, 3), device=dev)
-    nrm[..., 2] = 1.0
-    add = dict(normals=nrm, colors=torch.tensor(
-        [[0.9, 0.2, 0.2, 0.03125], [0.2, 0.9, 0.2, 0.0625]], device=dev),
-        emissive=torch.zeros((k, 3), device=dev),
-        metallic=torch.full((k,), 0.5, device=dev),
-        roughness=torch.full((k,), 0.5, device=dev))
-    return setup, {n: torch.cat([v, add[n]]) if n in add else v
-                   for n, v in s.items()}
-
-
 def tri_scene_calls(dev):
     """The six raster_tris instantiations (layout x scissor) on tri_scene
     with_slivers, moved to `dev`: a list of (args, kwargs), binned with
     bin_tris."""
+    from torch_scenes import with_slivers
+
     from bevy_tpu_torch.ops import raster3d as r3
     from bevy_tpu_torch.ops import raster3d_tris as rt
     s = tri_scene(dev)
@@ -1983,8 +2026,7 @@ def tri_phases(dev, n, smi, results):
         name = f"test scene ({kw['layout']}, scissor " \
             f"{'on' if a[7] else 'off'})"
         log(f"{kid} vs plain, {name}: bit-equal (max abs err {err})")
-        if kid == "B7":
-            b7_cull_line(name, work_tris(a, kw))
+        tri_cull_line(kid, name, work_tris(a, kw))
 
     # -- 21: the cubes_f3 golden through backend="xla" --------------------
     app = torch_many_cubes.build_app(n_cubes=300, width=320, height=180,
@@ -1998,7 +2040,8 @@ def tri_phases(dev, n, smi, results):
     log(f"B7 vs plain, cubes_f3 scene: {len(errs)} calls bit-equal (max abs "
         f"err {max(errs)})")
     for i, (a, kw) in enumerate(rec.calls["B7"]):
-        b7_cull_line(f"cubes_f3 scene, frame {i + 1}", work_tris(a, kw))
+        tri_cull_line("B7", f"cubes_f3 scene, frame {i + 1}",
+                      work_tris(a, kw))
     check_golden(frame_image(app), CUBES_XLA_GOLDEN)
     check_stats(app.world.state, ("pair_overflow", "tile_overflow"))
 
@@ -2011,7 +2054,7 @@ def tri_phases(dev, n, smi, results):
     if len(errs) != 1:
         raise AssertionError(f"shapes_f1 called B7 {len(errs)} times")
     log(f"B7 vs plain, shapes_f1 scene: bit-equal (max abs err {errs[0]})")
-    b7_cull_line("shapes_f1 scene", work_tris(*rec.calls["B7"][0]))
+    tri_cull_line("B7", "shapes_f1 scene", work_tris(*rec.calls["B7"][0]))
     check_golden(frame_image(app), SHAPES_GOLDEN)
     del app, rec
 
@@ -2172,13 +2215,36 @@ def main():
                 f"(max abs err {max(errs)})")
         for a, kw in recd.calls["B1"]:
             b1_cull_line(f"{name} scene", a, kw)
+        for a, kw in recd.calls["B2"]:
+            b2_cull_line(f"{name} scene", a, kw)
     log(f"near-plane scene: {b2_lists} (tile, cluster) entries through B2")
+    # B2's scissor instantiation, with a rect that cuts tiles and blocks
+    for a, kw in rec_near.calls["B2"]:
+        H, W = a[0].shape
+        sc = (W * 0.15 + 0.5, H * 0.1 + 0.25, W * 0.8 + 0.25, H * 0.85)
+        err = compare("B2", a[:5] + (sc,), kw)
+        cut = kernel_fn("B2")(*a[:5], sc, **kw)[1]
+        full = kernel_fn("B2")(*a[:5], **kw)[1]
+        log(f"B2 vs plain, near-plane scene, scissor {sc}: bit-equal (max "
+            f"abs err {err}); {int((cut != full).sum())} pixels the rect "
+            f"keeps from a triangle")
+        if bool((cut == full).all()):
+            raise AssertionError("the B2 scissor rect cut nothing")
     from torch_scenes import b1_cull_scenes
     for name, (rows, d0, w0, o, m, v, kw, _) in b1_cull_scenes(dev).items():
         a = (d0, w0, rows, o, m, v)
         err = compare("B1", a, kw)
         log(f"B1 vs plain, {name} scene: bit-equal (max abs err {err})")
         b1_cull_line(f"{name} scene", a, kw)
+    from torch_scenes import b2_scenes
+    for name, (a, kw) in b2_scenes(dev).items():
+        H, W = a[0].shape
+        for sc in (None, (W * 0.2 + 0.5, H * 0.15, W * 0.75 + 0.25,
+                          H * 0.9 + 0.5)):
+            err = compare("B2", a + (sc,), kw)
+            log(f"B2 vs plain, {name} scene, scissor {sc}: bit-equal (max "
+                f"abs err {err})")
+        b2_cull_line(f"{name} scene", a, kw)
     torch.cuda.synchronize()
 
     # -- golden image --------------------------------------------------
@@ -2230,6 +2296,7 @@ def main():
         b1_cull_line("many_cubes full size", a, kw, aabb=box)
         results["B1"] = time_kernel("B1", a, kw, launches["B1"], err)
     a, kw = rec_full.calls["B2"][-1]
+    b2_cull_line("many_cubes full size", a, kw)
     results["B2"] = time_kernel("B2", a, kw, launches["B2"],
                                 compare("B2", a, kw))
     cubes_img = frame_image(app)
@@ -2263,6 +2330,8 @@ def main():
                 f"bit-equal (max abs err {max(errs)})")
     for a, kw in rec_lg.calls["B1"]:
         b1_cull_line("lights golden scene", a, kw)
+    for a, kw in rec_lg.calls["B2"]:
+        b2_cull_line("lights golden scene", a, kw)
     lights_img = frame_image(lapp)
     check_golden(lights_img, LIGHTS_GOLDEN)
     check_stats(lapp.world.state, ("light_pair_overflow",
@@ -2320,6 +2389,8 @@ def main():
             f"bit-equal (max abs err {max(errs)})")
     for a, kw in rec_full.calls["B1"]:
         b1_cull_line("many_lights full size", a, kw)
+    for a, kw in rec_full.calls["B2"]:
+        b2_cull_line("many_lights full size", a, kw)
     a, kw = rec_full.calls["B3"][-1]
     err = compare("B3", a, kw)
     log(f"B3 at full size: max abs err {err[0]}, max rel err {err[1]}, "

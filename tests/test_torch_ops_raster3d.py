@@ -343,10 +343,14 @@ def test_window_px_kept_drops_only_outside_pairs(name, far, near):
     assert int(kept.sum()) < kept.numel()
 
 
-def test_raster_visbuf_plain_matches_pallas(near):
-    """Kernel B2's plain version vs the Pallas `_stream_kernel` (interpret
-    mode) on the near-plane scene's tile lists."""
-    tile_h, tile_w = 16, 128
+# a rect that cuts the near scene's 16 x 128 tiles (and one 16 x 64 block
+# of B2) on all four sides, at unaligned coordinates
+NEAR_SCISSOR = (37.5, 9.0, 201.25, 100.0)
+
+
+def _near_bins(near, tile_h=16, tile_w=128):
+    """The near scene's tile lists (bin_clusters, front-to-back keys) and
+    cluster records, as the mesh pass hands them to B2."""
     ntx, nty = W // tile_w, H // tile_h
     key = np.clip((1.0 - near["zmax"]) * 65535.0, 0, 65535).astype(np.int32)
     cl_table, cl_counts, _ = jvis.bin_clusters(
@@ -355,18 +359,89 @@ def test_raster_visbuf_plain_matches_pallas(near):
         pair_budget=512, order_key=jnp.asarray(key))
     assert int(jnp.max(cl_counts)) >= 2
     zrec = jnp.asarray(near["zrec"]).reshape(-1, jvis.ZREC)
+    return cl_table, cl_counts, zrec
+
+
+@pytest.mark.parametrize("scissor", [None, NEAR_SCISSOR],
+                         ids=["full", "scissor"])
+def test_raster_visbuf_plain_matches_pallas(near, scissor):
+    """Kernel B2's plain version vs the Pallas `_stream_kernel` (interpret
+    mode) on the near-plane scene's tile lists, without and with a scissor
+    rect that cuts tiles."""
+    tile_h, tile_w = 16, 128
+    cl_table, cl_counts, zrec = _near_bins(near, tile_h, tile_w)
     recs = jvis.cluster_records(zrec, CS)
     dep0 = jnp.zeros((H, W), jnp.float32)
     win0 = jnp.full((H, W), -1.0, jnp.float32)
     jd, jw = jvis.raster_visbuf(
         dep0, win0, jvis.tile_chunk_records(recs, cl_table),
         jvis.build_cluster_meta(cl_table, jnp.asarray(near["zmax"])),
-        cl_counts, tile_h=tile_h, tile_w=tile_w, cs=CS, interpret=True)
+        cl_counts, scissor, tile_h=tile_h, tile_w=tile_w, cs=CS,
+        interpret=True)
     td, tw = tvis.raster_visbuf(T(dep0), T(win0),
                                 tvis.cluster_records(T(zrec), CS),
-                                T(cl_table), T(cl_counts), tile_h=tile_h,
-                                tile_w=tile_w, cs=CS)
+                                T(cl_table), T(cl_counts), scissor,
+                                tile_h=tile_h, tile_w=tile_w, cs=CS)
     _compare_visbuf(jd, jw, td, tw)
+    if scissor is not None:
+        x0, y0, x1, y1 = scissor
+        px = np.arange(W) + 0.5
+        py = np.arange(H)[:, None] + 0.5
+        outside = (px < x0) | (px >= x1) | (py < y0) | (py >= y1)
+        assert (N(tw)[outside] == -1).all() and (N(td)[outside] == 0).all()
+        assert (N(tw)[~outside] >= 0).mean() > 0.5
+
+
+def test_stream_block_cull_drops_only_outside_pairs(near):
+    """B2's block cull (tri_in_stream_block, the kernel's decisions in plain
+    PyTorch) drops no (pixel, triangle) pair the reference would evaluate
+    (the triangle passes the tile test) and find inside the edges, in the
+    walk's arithmetic (d0*px + d1*py) + d2, on the near-plane scene
+    (straddlers with full-viewport AABBs in every tile); and it drops
+    some. 16 x 128 and 32 x 128 tiles, each over 16 x 64 blocks."""
+    for tile_h in (16, 32):
+        cl_table, cl_counts, zrec = _near_bins(near, tile_h)
+        recs = tvis.cluster_records(T(zrec), CS)
+        table, counts = T(cl_table), T(cl_counts)
+        keep = tvis.tri_in_stream_block(recs, table, counts, H, W,
+                                        tile_h=tile_h, tile_w=128, cs=CS)
+        nt, nby, nbx, ns, cs = keep.shape
+        bh, bw = tvis.STREAM_BLOCK_H, tvis.STREAM_BLOCK_W
+        assert (nby, nbx, cs) == (-(-tile_h // bh), 128 // bw, CS)
+        ntx = W // 128
+        ti = torch.arange(nt)
+        px = (torch.arange(128)[None, None, :] + (ti % ntx * 128)[:, None,
+                                                                 None]) + 0.5
+        py = (torch.arange(tile_h)[None, :, None] +
+              (ti // ntx * tile_h)[:, None, None]) + 0.5
+        frame = (px < W) & (py < H)
+        px, py = px.to(torch.float32), py.to(torch.float32)
+        ids = table[:, :ns]
+        listed = (torch.arange(ns)[None, :] < counts[:, None]) & (ids >= 0)
+        rec = recs[ids.clamp(min=0).long()]
+        tx0, ty0 = (ti % ntx * 128).float(), (ti // ntx * tile_h).float()
+        dropped = inside_dropped = 0
+        for sl in range(ns):
+            for s in range(CS):
+                def d(k, _b=s * tvis.ZREC):
+                    return rec[:, sl, _b + k][:, None, None]
+                hit = listed[:, sl] & (rec[:, sl, s * 20 + 12] >= 0) & \
+                    (rec[:, sl, s * 20 + 15] > tx0) & \
+                    (rec[:, sl, s * 20 + 13] < tx0 + 128) & \
+                    (rec[:, sl, s * 20 + 16] > ty0) & \
+                    (rec[:, sl, s * 20 + 14] < ty0 + tile_h)
+                inside = (d(0) * px + d(1) * py + d(2) <= 0) & \
+                    (d(3) * px + d(4) * py + d(5) <= 0) & \
+                    (d(6) * px + d(7) * py + d(8) <= 0) & frame
+                inside = inside & hit[:, None, None]
+                blocks = torch.nn.functional.pad(
+                    inside, (0, 0, 0, nby * bh - tile_h)).reshape(
+                    nt, nby, bh, nbx, bw).any(4).any(2)
+                drop = hit[:, None, None] & ~keep[..., sl, s]
+                dropped += int(drop.sum())
+                inside_dropped += int((drop & blocks).sum())
+        assert inside_dropped == 0
+        assert 0 < dropped < int(listed.sum()) * CS * nby * nbx
 
 
 # -- the slice end to end ---------------------------------------------------

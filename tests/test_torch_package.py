@@ -150,6 +150,30 @@ def test_kernels_match_plain_on_card():
         assert torch.equal(wk.view(torch.int32), wp.view(torch.int32))
 
 
+@pytest.mark.cuda
+def test_stream_kernel_matches_plain_on_card():
+    """B2 on torch_scenes.b2_scenes (slivers; straddlers over tiles of 32 x
+    96 in a frame 202 wide, three passes of the list), the scissor off and
+    on: bit-equal to the plain version, the inputs unwritten, one launch a
+    call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (runs in chip_smoke.py's environment)")
+    from torch_scenes import b2_scenes
+    for a, kw in b2_scenes("cuda").values():
+        h, w = a[0].shape
+        before = [x.clone() for x in a]
+        for sc in (None, (w * 0.2 + 0.5, h * 0.15, w * 0.75 + 0.25,
+                          h * 0.9 + 0.5)):
+            n0 = vis.raster_visbuf.launches
+            dk, wk = vis.raster_visbuf(*a, sc, **kw)
+            dp, wp = vis._raster_visbuf_plain(*a, sc, **kw)
+            torch.cuda.synchronize()
+            assert vis.raster_visbuf.launches == n0 + 1
+            assert torch.equal(dk.view(torch.int32), dp.view(torch.int32))
+            assert torch.equal(wk.view(torch.int32), wp.view(torch.int32))
+        assert all(torch.equal(x, y) for x, y in zip(a, before))
+
+
 def _composite_case(device="cpu"):
     """B6's scene (chip_smoke.composite_scene: packed windows that overlap
     at unaligned rows, tie with each other and with the incoming depth, and

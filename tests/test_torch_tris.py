@@ -35,8 +35,8 @@ from bevy_tpu.ops import raster3d as jr3  # noqa: E402
 from bevy_tpu.ops import raster3d_pallas as jrp  # noqa: E402
 from bevy_tpu_torch.ops import raster3d as r3  # noqa: E402
 from bevy_tpu_torch.ops import raster3d_tris as rt  # noqa: E402
-from chip_smoke import (SLIVER_INSIDE, TRI_KW, TRI_SCISSOR,  # noqa: E402
-                        tri_scene, with_slivers)
+from chip_smoke import TRI_KW, TRI_SCISSOR, tri_scene  # noqa: E402
+from torch_scenes import SLIVER_INSIDE, with_slivers  # noqa: E402
 
 H, W = 180, 320
 TOL = dict(rtol=1e-6, atol=1e-6)
@@ -216,61 +216,59 @@ def test_raster_tris_matches_jax_interpret(scene, layout, scissor):
     assert rt.raster_tris.kernel_launches == {"B7": 0, "B8": 0}
 
 
-def _edge_inside(table, pair_tri, starts, s_, px, py):
-    """(T, th, tw) bool: whether each pixel centre is inside the edges of
-    its tile's s_-th listed corner record, in the kernel's arithmetic."""
-    slot = torch.clamp(starts + s_, max=pair_tri.shape[0] - 1).long()
-    d = table[pair_tri[slot].long()][:, :13, None, None].unbind(1)
-    return rt._coverage(d, px, py, "corners")[0]
-
-
-@pytest.mark.parametrize("scissor", [False, True], ids=["full", "scissor"])
-def test_tri_in_block_drops_only_outside_pairs(scene, scissor):
-    """B7's cull (tri_in_block) is exact: no pixel of a 16x16 block, or of
-    a warp's two rows, is inside the edges of an entry dropped for it; and
-    the plain version with each 16x16 block's lists cut to the kept
-    entries (order kept) rasters that block bit for bit as with the whole
-    lists, the scissor off and on. The scene carries chip_smoke's two
-    slivers, which the plain version draws at a pixel past their AABB
-    (another block, other rows): only the sliver rule keeps them there."""
-    s, setup = scene
-    setup, s = with_slivers(setup, s)
-    table = rt.pack_tri_table(setup, s["normals"], s["colors"],
-                              s["emissive"])
-    pair_tri, starts, counts, _ = rt.bin_tris(setup["valid"],
-                                              setup["aabb"], H, W, **TRI_KW)
-    th, tw = TRI_KW["tile_h"], TRI_KW["tile_w"]
-    B = rt.BLOCK
-    nt = counts.shape[0]
+def _tiles_px(nt, th, tw):
+    """(T, th, tw) pixel centres of each tile of the W-wide frame."""
     ntx = -(-W // tw)
     ti = torch.arange(nt)
     px = (torch.arange(tw)[None, None, :] + ((ti % ntx) * tw)[:, None, None]
           ).to(torch.float32) + 0.5
     py = (torch.arange(th)[None, :, None] + ((ti // ntx) * th)[:, None, None]
           ).to(torch.float32) + 0.5
+    return ti, px, py
+
+
+def _edge_inside(table, pair_tri, starts, s_, px, py, layout):
+    """(T, th, tw) bool: whether each pixel centre is inside the edges of
+    its tile's s_-th listed record, in the kernel's arithmetic."""
+    slot = torch.clamp(starts + s_, max=pair_tri.shape[0] - 1).long()
+    d = table[pair_tri[slot].long()][:, :13, None, None].unbind(1)
+    return rt._coverage(d, px, py, layout)[0]
+
+
+def _check_block_cull(replay, layout, table, setup, s, scissor):
+    """A block cull's replay (tri_in_block for B7, plane_in_block for B8)
+    drops no entry for a 16x16 block, or a warp's two rows, that is inside
+    the edges at a pixel of it, and drops some; and the plain version with
+    each 16x16 block's lists cut to the kept entries (order kept) rasters
+    that block bit for bit as with the whole lists. Returns the whole
+    lists' raster."""
+    pair_tri, starts, counts, _ = rt.bin_tris(setup["valid"],
+                                              setup["aabb"], H, W, **TRI_KW)
+    th, tw = TRI_KW["tile_h"], TRI_KW["tile_w"]
+    B = rt.BLOCK
+    nt = counts.shape[0]
+    ti, px, py = _tiles_px(nt, th, tw)
     ns = int(counts.max())
     for bh in (B, rt.WARP_ROWS):
-        keep = rt.tri_in_block(table, pair_tri, starts, counts, W,
-                               tile_h=th, tile_w=tw, block_h=bh)
+        keep = replay(table, pair_tri, starts, counts, W, tile_h=th,
+                      tile_w=tw, block_h=bh)
         assert keep.shape == (nt, th // bh, tw // B, ns)
         dropped = 0
         for s_ in range(ns):
-            inside = _edge_inside(table, pair_tri, starts, s_, px, py) \
-                .reshape(nt, th // bh, bh, tw // B, B)
+            inside = _edge_inside(table, pair_tri, starts, s_, px, py,
+                                  layout).reshape(nt, th // bh, bh, tw // B,
+                                                  B)
             drop = ~keep[..., s_] & (s_ < counts)[:, None, None]
             assert not (drop & inside.any(4).any(2)).any(), (bh, s_)
             dropped += int(drop.sum())
         assert 0 < dropped < int(counts.sum()) * keep[0, ..., 0].numel()
 
-    keep = rt.tri_in_block(table, pair_tri, starts, counts, W, tile_h=th,
-                           tile_w=tw)
+    keep = replay(table, pair_tri, starts, counts, W, tile_h=th, tile_w=tw)
     fb = s["fb"][:4].contiguous()
     sc = TRI_SCISSOR if scissor else None
-    kw = dict(tile_h=th, tile_w=tw, layout="corners")
+    kw = dict(tile_h=th, tile_w=tw, layout=layout)
     full = rt._raster_tris_plain(fb, s["depth"], table, pair_tri, starts,
                                  counts, s["light"], sc, **kw)
-    for (x, y), alpha in zip(SLIVER_INSIDE, s["colors"][-2:, 3]):
-        assert full[0][3, int(y), int(x)] == alpha, (x, y)
     yy = (torch.arange(H) % th) // B
     xx = (torch.arange(W) % tw) // B
     rows = pair_tri[torch.clamp(starts[:, None] + torch.arange(ns)[None, :],
@@ -288,4 +286,41 @@ def test_tri_in_block_drops_only_outside_pairs(scene, scissor):
                                full[0][:, m].view(torch.int32)), (by, bx)
             assert torch.equal(out[1][m].view(torch.int32),
                                full[1][m].view(torch.int32)), (by, bx)
+    return full
 
+
+@pytest.mark.parametrize("scissor", [False, True], ids=["full", "scissor"])
+def test_tri_in_block_drops_only_outside_pairs(scene, scissor):
+    """B7's cull (tri_in_block) is exact: no pixel of a 16x16 block, or of
+    a warp's two rows, is inside the edges of an entry dropped for it; and
+    the plain version with each 16x16 block's lists cut to the kept
+    entries (order kept) rasters that block bit for bit as with the whole
+    lists, the scissor off and on. The scene carries torch_scenes' two
+    slivers, which the plain version draws at a pixel past their AABB
+    (another block, other rows): only the sliver rule keeps them there."""
+    s, setup = scene
+    setup, s = with_slivers(setup, s)
+    table = rt.pack_tri_table(setup, s["normals"], s["colors"],
+                              s["emissive"])
+    full = _check_block_cull(rt.tri_in_block, "corners", table, setup, s,
+                             scissor)
+    for (x, y), alpha in zip(SLIVER_INSIDE, s["colors"][-2:, 3]):
+        assert full[0][3, int(y), int(x)] == alpha, (x, y)
+
+
+@pytest.mark.parametrize("scissor", [False, True], ids=["full", "scissor"])
+def test_plane_in_block_drops_only_outside_pairs(scene, scissor):
+    """B8's cull (plane_in_block) is exact: no pixel of a 16x16 block, or of
+    a warp's two rows, is inside the edge planes of an entry dropped for
+    it, in the walk's arithmetic (the slivers of torch_scenes included,
+    which read inside past their AABB: the cull tests their own planes);
+    and the plain version with each 16x16 block's lists cut to the kept
+    entries (order kept) rasters that block bit for bit as with the whole
+    lists, forward, the scissor off and on."""
+    s, setup = scene
+    setup, s = with_slivers(setup, s)
+    table = rt.pack_tri_planes(
+        setup["corners"], setup["depth"], setup["inv_w"], setup["area2"],
+        setup["valid"], s["normals"], s["colors"], s["emissive"],
+        s["metallic"], s["roughness"])
+    _check_block_cull(rt.plane_in_block, "planes", table, setup, s, scissor)

@@ -1,7 +1,8 @@
 """Inputs shared by the port's CPU tests and chip_smoke.py: the sprite
-scenes, and the scenes that stress the culls of kernels B1 (window-splat
-raster) and B5 (window-splat sprite raster). Each builds its tensors from
-a seed with numpy and moves them to the `device` it is given."""
+scenes, the scenes that stress the culls of kernels B1 (window-splat
+raster) and B5 (window-splat sprite raster), and the two slivers of the
+B7 / B8 scene (SLIVER_CORNERS, with_slivers). Each builds its tensors
+from a seed with numpy and moves them to the `device` it is given."""
 
 import numpy as np
 import torch
@@ -159,3 +160,92 @@ def b1_cull_scenes(device):
                 frames[k][1].to(device), o.to(device), m.to(device),
                 v.to(device), kw, tuple(frames[k][0].shape))
             for k, (rows, o, m, v, kw) in out.items()}
+
+
+# Two slivers in tri_scene's 320x180 frame (screen corners ax ay bx by cx
+# cy, |area2| 5e-5 and 2e-4 px^2, each across a 16-px block edge) whose
+# float edges read a pixel centre inside well past their AABB, in a tile
+# they are listed in: the first (106.5, 59.5), 18 px left of its AABB in
+# another 16x16 block; the second (239.5, 25.5), in its block but two
+# row pairs below. Only B7's sliver rule keeps them there; B8's
+# cull tests the edges' own arithmetic, so it needs no such rule.
+SLIVER_CORNERS = np.array(
+    [[138.91505, 49.391125, 177.12376, 37.475452, 124.366, 53.928356],
+     [233.24269, -10.04426, 229.31094, -32.37828, 238.75624, 21.27512]],
+    np.float32)
+SLIVER_INSIDE = ((106.5, 59.5), (239.5, 25.5))
+
+
+def with_slivers(setup, s):
+    """triangle_setup_corners' `setup` and tri_scene's `s` with the
+    SLIVER_CORNERS triangles appended (NDC depth 0.9, w 1, normal +z,
+    their own colours)."""
+    dev = setup["corners"].device
+    c = torch.tensor(SLIVER_CORNERS, device=dev).reshape(-1, 3, 2)
+    k = c.shape[0]
+    ax, ay, bx, by, cx, cy = c.reshape(k, 6).unbind(1)
+    area2 = (bx - ax) * (cy - ay) - (by - ay) * (cx - ax)
+    assert bool((area2 < -1e-12).all())
+    aabb = torch.stack([c[..., 0].amin(1), c[..., 1].amin(1),
+                        c[..., 0].amax(1), c[..., 1].amax(1)], 1)
+    add = dict(corners=c, depth=torch.full((k, 3), 0.9, device=dev),
+               inv_w=torch.ones((k, 3), device=dev), area2=area2,
+               valid=torch.ones(k, dtype=torch.bool, device=dev), aabb=aabb)
+    setup = {n: torch.cat([v, add[n]]) for n, v in setup.items()}
+    nrm = torch.zeros((k, 3, 3), device=dev)
+    nrm[..., 2] = 1.0
+    add = dict(normals=nrm, colors=torch.tensor(
+        [[0.9, 0.2, 0.2, 0.03125], [0.2, 0.9, 0.2, 0.0625]], device=dev),
+        emissive=torch.zeros((k, 3), device=dev),
+        metallic=torch.full((k,), 0.5, device=dev),
+        roughness=torch.full((k,), 0.5, device=dev))
+    return setup, {n: torch.cat([v, add[n]]) if n in add else v
+                   for n, v in s.items()}
+
+
+def b2_scenes(device):
+    """B2 calls off the mesh pass's beaten track, by name: (args, keywords)
+    of raster_visbuf. "slivers": b1_sliver_corners' thin triangles (either
+    winding, across tile and block edges) in clusters of 4 over a 100 x 200
+    frame of 16 x 128 tiles (the last tile row and column cut by the frame);
+    "straddlers": random large triangles, a third with a corner behind the
+    eye (full-viewport AABBs), in clusters of 12 over a 90 x 202 frame (a
+    width that is not a multiple of 4: most rows start off a 16-byte
+    boundary) of 32 x 96 tiles; both over a depth holding 0.5 on a fifth
+    of the pixels."""
+    from bevy_tpu_torch.ops import raster3d_visbuf as vis
+
+    def call(cc, cs, h, w, tile_h, tile_w, seed):
+        t = cc.shape[0]
+        zrec, valid = vis.pack_planes_h(
+            cc, torch.zeros(cc.shape[:-1] + (3,)),
+            torch.ones(t, dtype=torch.bool), w, h)
+        aabb, cl_valid, zmax = vis.cluster_screen_aabbs(
+            cc, torch.ones(1, dtype=torch.bool), valid, cs, w, h)
+        ntx, nty = -(-w // tile_w), -(-h // tile_h)
+        key = torch.clamp((1.0 - zmax) * 65535.0, 0, 65535).to(torch.int32)
+        table, counts, _ = vis.bin_clusters(
+            aabb, cl_valid, ntx=ntx, nty=nty, tile_w=tile_w, tile_h=tile_h,
+            max_clusters_per_tile=t // cs, pair_budget=4 * t + 64,
+            order_key=key)
+        rng = np.random.RandomState(seed)
+        depth = torch.from_numpy(np.where(rng.uniform(size=(h, w)) < 0.2,
+                                          0.5, 0.0).astype(np.float32))
+        winner = torch.full((h, w), -1.0)
+        args = (depth, winner, vis.cluster_records(zrec, cs), table, counts)
+        return (tuple(x.to(device) for x in args),
+                dict(tile_h=tile_h, tile_w=tile_w, cs=cs))
+
+    out = {"slivers": call(torch.from_numpy(b1_sliver_corners()), 4, 100,
+                           200, 16, 128, 0)}
+    rng = np.random.RandomState(5)
+    n, h, w = 48 * 12, 90, 202
+    ndc = rng.uniform(-1.5, 1.5, (n, 1, 2)) + rng.uniform(-0.8, 0.8, (n, 3, 2))
+    wc = rng.uniform(0.5, 3.0, (n, 3))
+    wc[rng.uniform(size=n) < 0.33, rng.randint(0, 3)] *= -1.0
+    cc = np.zeros((n, 3, 4), np.float32)
+    cc[..., 0:2] = ndc * np.abs(wc)[..., None]
+    cc[..., 2] = rng.uniform(0.1, 0.9, (n, 3)) * np.abs(wc)
+    cc[..., 3] = wc
+    out["straddlers"] = call(torch.from_numpy(cc), 12, h, w, 32, 96, 1)
+    return out
