@@ -18,7 +18,8 @@ back first, so a frame itself never reads the device.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Sequence
+from types import SimpleNamespace
+from typing import Any, Dict, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -226,8 +227,41 @@ class World:
         self.structure_version += 1
         return rows
 
+    def insert(self, entity: Union[Entity, int],
+               *components: ComponentInstance):
+        """Host-tier insert (ref: EntityWorldMut::insert): every field of
+        each component on the entity's row (unspecified fields take their
+        defaults), its membership and its added / changed ticks. Required
+        components are not ported (ROADMAP A7)."""
+        self._sync()
+        row = entity.index if isinstance(entity, Entity) else int(entity)
+        trow = torch.as_tensor([row], device=self.device)
+        tick = self.state["tick"] + 1  # see spawn_batch
+        self.state["tick"] = tick
+        for inst in components:
+            spec = self.register_component(inst.spec)
+            if not self._host_has[spec.name].any():
+                self.structure_version += 1    # 0 -> nonzero rows
+            self._host_has[spec.name][row] = True
+            store = self.state["comp"][spec.name]
+            for fname, fld in spec.fields.items():
+                val = inst.values.get(fname, fld.default)
+                store["f"][fname][trow] = as_tensor(
+                    val, fld.dtype, self.device).expand((1,) + fld.shape)
+            store["has"][trow] = True
+            store["added"][trow] = tick
+            store["changed"][trow] = tick
+
     # ------------------------------------------------------------------
     # host-tier reads
+
+    def get(self, entity: Union[Entity, int], comp):
+        """Host copy of one entity's component as a namespace of numpy
+        values."""
+        row = entity.index if isinstance(entity, Entity) else int(entity)
+        store = self.state["comp"][get_spec(comp).name]
+        return SimpleNamespace(**{f: a[row].cpu().numpy()
+                                  for f, a in store["f"].items()})
 
     def column(self, comp, fname: str) -> torch.Tensor:
         """Whole field column (capacity rows, on the world's device)."""

@@ -2,7 +2,8 @@
 tensors, vectorized over leading batch dims."""
 
 from bevy_tpu_torch.math.quat import (  # noqa: F401
-    quat_conjugate, quat_from_euler, quat_mul, quat_rotate_vec3,
+    quat_conjugate, quat_dot, quat_from_axis_angle, quat_from_euler,
+    quat_mul, quat_nlerp, quat_normalize, quat_rotate_vec3, quat_slerp,
     quat_to_mat3,
 )
 from bevy_tpu_torch.math.affine import (  # noqa: F401

@@ -1,7 +1,7 @@
 """Batched quaternion ops (port of bevy_tpu/math/quat.py).
 
 Layout: `(..., 4)` float32 tensors as `[x, y, z, w]` (glam convention).
-Only the functions the many_cubes frame reaches are ported.
+The functions the frames and animation reach are ported.
 """
 
 import torch
@@ -14,6 +14,19 @@ def cross(a, b):
     return torch.stack([a1 * b2 - a2 * b1,
                         a2 * b0 - a0 * b2,
                         a0 * b1 - a1 * b0], dim=-1)
+
+
+def safe_normalize(v, eps=1e-12):
+    """Normalize along the last axis, zeros for zero-length vectors (ref:
+    glam `normalize_or_zero`)."""
+    sq = torch.sum(v * v, -1, keepdim=True)
+    inv = torch.where(sq > eps, torch.rsqrt(torch.clamp(sq, min=eps)),
+                      torch.zeros_like(sq))
+    return v * inv
+
+
+def quat_normalize(q):
+    return safe_normalize(q)
 
 
 def quat_conjugate(q):
@@ -30,6 +43,15 @@ def quat_mul(a, b):
         aw * bz + ax * by - ay * bx + az * bw,
         aw * bw - ax * bx - ay * by - az * bz,
     ], dim=-1)
+
+
+def quat_from_axis_angle(axis, angle):
+    """axis: (..., 3) unit vectors; angle: (...) radians (a float32 tensor
+    or a number)."""
+    angle = torch.as_tensor(angle, dtype=torch.float32, device=axis.device)
+    half = angle * 0.5
+    s, c = torch.sin(half), torch.cos(half)
+    return torch.cat([axis * s[..., None], c[..., None]], -1)
 
 
 def quat_from_euler(yaw, pitch, roll):
@@ -68,3 +90,30 @@ def quat_to_mat3(q):
         xz - wy, yz + wx, 1.0 - (xx + yy),
     ], dim=-1)
     return m.reshape(m.shape[:-1] + (3, 3))
+
+
+def quat_dot(a, b):
+    return torch.sum(a * b, -1)
+
+
+def quat_nlerp(a, b, t):
+    """Normalized lerp with hemisphere correction: `b` flips where the dot
+    product is below 0 (the reference's animation blend)."""
+    d = quat_dot(a, b)
+    b = torch.where(d[..., None] < 0.0, -b, b)
+    return quat_normalize(a + (b - a) * t)
+
+
+def quat_slerp(a, b, t):
+    """Spherical lerp, nlerp weights where nearly parallel (ref: glam
+    slerp DOT_THRESHOLD)."""
+    t = torch.as_tensor(t, dtype=torch.float32, device=a.device)
+    d = quat_dot(a, b)
+    b = torch.where(d[..., None] < 0.0, -b, b)
+    d = torch.clamp(torch.abs(d), -1.0, 1.0)
+    theta = torch.arccos(d)
+    near = d > 0.9995
+    safe_sin = torch.where(near, torch.ones_like(theta), torch.sin(theta))
+    wa = torch.where(near, 1.0 - t, torch.sin((1.0 - t) * theta) / safe_sin)
+    wb = torch.where(near, t, torch.sin(t * theta) / safe_sin)
+    return quat_normalize(a * wa[..., None] + b * wb[..., None])

@@ -312,9 +312,11 @@ def _key_float(hi):
 
 def _fused_plain(depth, winner, rec_rows, owner, meta, wvalid, *, win_h,
                  ntri, nedge, chunk=4096):
-    """Plain PyTorch version of B1: per window, the first slot holding the
-    maximal z that passes the edge test, then a scatter-max of the (z,
-    -seq) keys over all windows, then the decode."""
+    """Plain PyTorch version of B1: per valid window, the first slot
+    holding the maximal z that passes the edge test, then a scatter-max of
+    the (z, -seq) keys over those windows, then the decode. Only the valid
+    windows are walked (an invalid one writes nothing); seq stays the
+    window's index in the budget."""
     H, W = depth.shape
     dev = depth.device
     stride = 3 * nedge + 4
@@ -324,9 +326,11 @@ def _fused_plain(depth, winner, rec_rows, owner, meta, wvalid, *, win_h,
                      torch.zeros(1, dtype=torch.int64, device=dev)])
     lane = torch.arange(WIN_W, dtype=torch.int32, device=dev)
     row = torch.arange(win_h, dtype=torch.int32, device=dev)
-    for start in range(0, owner.shape[0], chunk):
-        o = owner[start:start + chunk]
-        m = meta[start:start + chunk]
+    live = torch.nonzero(wvalid).reshape(-1)
+    for start in range(0, live.shape[0], chunk):
+        wi = live[start:start + chunk]
+        o = owner[wi]
+        m = meta[wi]
         rec = flat[o]                                        # (b, rowlen)
         x = ((m // 2048) * WIN_W)[:, None, None] + lane[None, None, :]
         y = (m % 2048)[:, None, None] + row[None, :, None]
@@ -347,11 +351,10 @@ def _fused_plain(depth, winner, rec_rows, owner, meta, wvalid, *, win_h,
             ok = (emax <= 0) & (z > best)
             best = torch.where(ok, z, best)
             best_s = torch.where(ok, s, best_s)
-        inb = (x < W) & (y < H) & wvalid[start:start + chunk, None, None]
+        inb = (x < W) & (y < H)
         p = (y.clamp(max=H - 1) * W + x.clamp(max=W - 1)).to(torch.int64)
         take = inb & (best_s >= 0) & (best > d0[p])
-        seq = (torch.arange(start, start + o.shape[0], device=dev)[:, None, None]
-               * ntri + best_s)
+        seq = wi.to(torch.int64)[:, None, None] * ntri + best_s
         k = order_key(best) * _HI | (0xFFFFFFFE - seq)
         key.scatter_reduce_(0, torch.where(take, p, H * W).reshape(-1),
                             k.reshape(-1), "amax")

@@ -3,7 +3,8 @@ ref: bevy's meshlet software raster, `bevy_pbr/src/meshlet/`).
 
 - `pack_planes_h`: clipless homogeneous triangle setup (Olano-Greer): edge
   and depth planes from the adjugate of the clip-space corner matrix, so
-  near-plane straddlers need no clipping.
+  near-plane straddlers need no clipping; with `build_srec=True` also the
+  64-wide shade records (SREC) of smooth, textured and skinned meshes.
 - `cluster_screen_aabbs` / `bin_clusters` / `cluster_records`: cluster
   culling, tile binning and the per-cluster record rows.
 - `raster_visbuf`: the streaming-tile depth+id raster (kernel B2,
@@ -12,35 +13,63 @@ ref: bevy's meshlet software raster, `bevy_pbr/src/meshlet/`).
 - `pack_flat_gbuf` / `resolve_gbuf_flat`: the flat deferred branch, one
   16-wide (24 with specular tint) record per triangle and one gather
   into the G-buffer planes.
+- `sample_atlas`, `resolve_shade`, `resolve_forward`, `resolve_gbuf`: the
+  shade-record resolves — one 64-wide row gather a pixel,
+  perspective-correct normals and UVs, the material atlas (base colour,
+  normal map, emissive / metallic-roughness / occlusion textures,
+  lightmap, parallax occlusion), forward Lambert or the G-buffer write.
 
 Conventions: reverse-z GREATER (clear 0), CCW front faces, y-down pixels,
-pixel centers at +0.5. Only the zrec (depth+id) half of the setup is
-ported; the 64-wide shading records come with textured meshes.
+pixel centers at +0.5.
+
+Shade record slots (SREC = 64 floats, 67 with specular tint): 1/w plane
+0:3, normal/w planes 3:12, rgba 12:16, emissive 16:19, metallic 19,
+roughness 20, u/w and v/w planes 21:27, base-colour rect 27:31, tangent
+31:34, normal-map rect 34:38, lightmap rect 38:42, clearcoat and its
+roughness 42:44, anisotropy strength and rotation 44:46, depth-map rect
+46:50, parallax depth scale 50, emissive / metallic-roughness /
+occlusion rects 51:55 / 55:59 / 59:63, reflectance 63, specular tint
+64:67. A rect with u1 <= u0 is absent.
 """
 
 from __future__ import annotations
 
 import torch
 
+from bevy_tpu_torch.math.quat import cross
 from bevy_tpu_torch.ops import _cuda
 from bevy_tpu_torch.ops.binning import expand_runs
 
 ZREC = 20   # per-tri z-record: 3 edge planes (9), z plane (3), id, aabb (4), pad
+SREC = 64   # per-tri shade record (see the module docstring)
 
 
 def _pad_to(x, m):
     return (x + m - 1) // m * m
 
 
-def pack_planes_h(cc, cn, valid, width, height, id_base=0):
+def pack_planes_h(cc, cn, valid, width, height, id_base=0, *,
+                  build_srec=False, materials=None, cuv=None, tex_rect=None,
+                  tangents=None, nm_rect=None, lm_rect=None, dm_rect=None,
+                  em_rect=None, mr_rect=None, oc_rect=None):
     """Homogeneous (clipless) triangle setup, full-frame viewport.
 
-    cc: (..., 3, 4) clip-space corners; cn: (..., 3, 3) corner normals
-    (unused by the zrec half; kept for the JAX signature); valid: (...,)
-    bool. Returns (zrec (..., ZREC), valid_out (...,)). Leading dims are
-    batch dims; triangle ids are global row-major over them + id_base.
-    Every expression keeps the JAX package's evaluation order: the
-    degenerate guards compare exact f32 values."""
+    cc: (..., 3, 4) clip-space corners; cn: (..., 3, 3) corner normals;
+    valid: (...,) bool. Returns (zrec (..., ZREC), valid_out (...,)), or
+    with `build_srec` (zrec, srec (..., SREC or SREC + 3), valid_out).
+    Leading dims are batch dims; triangle ids are global row-major over
+    them + id_base. Every expression keeps the JAX package's evaluation
+    order: the degenerate guards compare exact f32 values.
+
+    The shade record's inputs (all per triangle, (..., k)): materials
+    (..., 9 | 15 | 18) [rgba, emissive, metallic, roughness, clearcoat,
+    clearcoat roughness, anisotropy strength, anisotropy rotation,
+    parallax depth scale, reflectance, specular tint rgb] (fewer than 15
+    columns: zeros and reflectance 0.5; 18: the tint slots 64:67); cuv
+    (..., 3, 2) corner UVs with tex_rect (..., 4) the base-colour atlas
+    rect; tangents (..., 3) with nm_rect (..., 4); lm_rect, dm_rect,
+    em_rect, mr_rect, oc_rect (..., 4) atlas rects. An absent part is
+    zeros (see the module docstring for the slots)."""
     lead = cc.shape[:-2]
     t = 1
     for d in lead:
@@ -106,7 +135,52 @@ def pack_planes_h(cc, cn, valid, width, height, id_base=0):
     zrec = torch.cat([-e, z_plane, tri_id[..., None], aabb,
                       torch.zeros(lead + (ZREC - 17,), dtype=torch.float32,
                                   device=cc.device)], -1)
-    return zrec, valid
+    if not build_srec:
+        return zrec, valid
+    return zrec, _shade_records(
+        e, cn, lead, cc.device, materials, cuv, tex_rect, tangents, nm_rect,
+        lm_rect, dm_rect, em_rect, mr_rect, oc_rect), valid
+
+
+def _shade_records(e, cn, lead, dev, materials, cuv, tex_rect, tangents,
+                   nm_rect, lm_rect, dm_rect, em_rect, mr_rect, oc_rect):
+    """The shade records of pack_planes_h (JAX's `build_srec` branch):
+    every q/w plane is sum_i(q_i * e_i) over the lambda_i/w planes e."""
+    def zeros(k):
+        return torch.zeros(lead + (k,), dtype=torch.float32, device=dev)
+
+    def combo(q):  # q: (..., 3) corner values -> plane sum_i q_i * e_i
+        return (q[..., 0:1] * e[..., 0:3] + q[..., 1:2] * e[..., 3:6] +
+                q[..., 2:3] * e[..., 6:9])
+
+    if materials is None:
+        materials = zeros(14)
+    if materials.shape[-1] < 15:      # pad clearcoat / aniso / pom / refl
+        pad = zeros(15 - materials.shape[-1])
+        pad[..., -1] = 0.5            # absent reflectance: the 4% default
+        materials = torch.cat([materials, pad], -1)
+    pom_part = torch.cat([dm_rect if dm_rect is not None else zeros(4),
+                          materials[..., 13:14]], -1)  # depth map, scale
+    if cuv is not None and tex_rect is not None:
+        uv_part = torch.cat([combo(cuv[..., 0]), combo(cuv[..., 1]),
+                             tex_rect], -1)
+    else:
+        uv_part = zeros(10)
+    if tangents is not None and nm_rect is not None:
+        nm_part = torch.cat([tangents, nm_rect], -1)
+    else:
+        nm_part = zeros(7)
+    def rect(r):
+        return r if r is not None else zeros(4)
+
+    parts = [combo(torch.ones_like(cn[..., 0])), combo(cn[..., 0]),
+             combo(cn[..., 1]), combo(cn[..., 2]), materials[..., :9],
+             uv_part, nm_part, rect(lm_rect), materials[..., 9:11],
+             materials[..., 11:13], pom_part, rect(em_rect), rect(mr_rect),
+             rect(oc_rect), materials[..., 14:15]]  # reflectance: slot 63
+    if materials.shape[-1] >= 18:
+        parts.append(materials[..., 15:18])        # specular tint 64:67
+    return torch.cat(parts, -1)
 
 
 def cluster_screen_aabbs(cc, inst_ok, tri_valid, cs: int, width, height,
@@ -486,4 +560,242 @@ def resolve_gbuf_flat(winner, frec, gbuf):
         planes[18] = ab[15]
     if nplanes >= 22 and frec.shape[-1] >= 19:
         planes[19:22] = ab[16:19]
+    return torch.where(ok[None], planes, gbuf)
+
+
+def _pixel_grids(H, W, device):
+    px = (torch.arange(W, dtype=torch.float32, device=device) + 0.5)[None, :] \
+        .expand(H, W)
+    py = (torch.arange(H, dtype=torch.float32, device=device) + 0.5)[:, None] \
+        .expand(H, W)
+    return px, py
+
+
+def _unit(v):
+    return v * torch.rsqrt(torch.clamp(torch.sum(v * v, -1, keepdim=True),
+                                       min=1e-12))
+
+
+def sample_atlas(atlas, uv):
+    """Bilinear, edge-clamped atlas sample (ref: the texture() call of pbr
+    shading; the atlas stands in for the bindless texture array). atlas
+    (AH, AW, 4) linear f32; uv (..., 2) in absolute [0, 1] atlas space.
+    Returns (..., 4). The texel index is floored before its cast."""
+    ah, aw = atlas.shape[0], atlas.shape[1]
+    x = uv[..., 0] * aw - 0.5
+    y = uv[..., 1] * ah - 0.5
+    x0f, y0f = torch.floor(x), torch.floor(y)
+    x0, y0 = x0f.long(), y0f.long()
+    fx = (x - x0f)[..., None]
+    fy = (y - y0f)[..., None]
+    x0c = torch.clamp(x0, 0, aw - 1)
+    x1c = torch.clamp(x0 + 1, 0, aw - 1)
+    y0c = torch.clamp(y0, 0, ah - 1)
+    y1c = torch.clamp(y0 + 1, 0, ah - 1)
+    t00 = atlas[y0c, x0c]
+    t01 = atlas[y0c, x1c]
+    t10 = atlas[y1c, x0c]
+    t11 = atlas[y1c, x1c]
+    top = t00 * (1 - fx) + t01 * fx
+    bot = t10 * (1 - fx) + t11 * fx
+    return top * (1 - fy) + bot * fy
+
+
+def _resolve(winner, srec, atlas, ray, parallax_layers):
+    """resolve_shade's work, also returning the gathered rows and the
+    pixel grids and 1/w (resolve_forward's lightmap term reads them)."""
+    H, W = winner.shape
+    ok = winner >= 0
+    rec = srec[torch.clamp(winner, min=0).long()]     # (H, W, SREC)
+    px, py = _pixel_grids(H, W, winner.device)
+    iw = rec[..., 0] * px + rec[..., 1] * py + rec[..., 2]
+    iw = torch.where(torch.abs(iw) > 1e-12, iw, torch.ones_like(iw))
+    nx = (rec[..., 3] * px + rec[..., 4] * py + rec[..., 5]) / iw
+    ny = (rec[..., 6] * px + rec[..., 7] * py + rec[..., 8]) / iw
+    nz = (rec[..., 9] * px + rec[..., 10] * py + rec[..., 11]) / iw
+    n = _unit(torch.stack([nx, ny, nz], -1))
+    # mat columns: rgba 0:4, emissive 4:7, metallic 7, roughness 8,
+    # clearcoat 9:11, raw tangent 11:14, anisotropy strength / rotation
+    # 14:16, reflectance 16, specular tint 17:20 (67-wide records)
+    parts = [rec[..., 12:21], rec[..., 42:44], rec[..., 31:34],
+             rec[..., 44:46], rec[..., 63:64]]
+    if srec.shape[-1] >= 67:
+        parts.append(rec[..., 64:67])
+    mat = torch.cat(parts, -1)
+    if atlas is None:
+        return n, mat, ok, rec, px, py, iw
+    u = (rec[..., 21] * px + rec[..., 22] * py + rec[..., 23]) / iw
+    v = (rec[..., 24] * px + rec[..., 25] * py + rec[..., 26]) / iw
+    if parallax_layers and ray is not None:
+        u, v = _parallax(atlas, rec, n, ok, u, v, px, py, ray,
+                         int(parallax_layers))
+    # REPEAT wrap inside the sub-rect (glTF's default sampler)
+    fu = u - torch.floor(u)
+    fv = v - torch.floor(v)
+
+    def channel(lo):
+        """(present, texel) of the optional atlas rect at srec slot lo."""
+        c0u, c0v = rec[..., lo], rec[..., lo + 1]
+        c1u, c1v = rec[..., lo + 2], rec[..., lo + 3]
+        return (c1u > c0u) & ok, sample_atlas(atlas, torch.stack(
+            [c0u + fu * (c1u - c0u), c0v + fv * (c1v - c0v)], -1))
+
+    textured, texel = channel(27)
+    base = torch.where(textured[..., None], mat[..., 0:4] * texel,
+                       mat[..., 0:4])
+    mat = torch.cat([base, mat[..., 4:]], -1)
+    # normal mapping: the tangent-space texel through the per-triangle
+    # TBN (ref: pbr_functions.wesl apply_normal_mapping)
+    has_nm, ntex = channel(34)
+    ntex = ntex[..., :3] * 2.0 - 1.0
+    tang = rec[..., 31:34]
+    tang = _unit(tang - n * torch.sum(tang * n, -1, keepdim=True))
+    bitan = cross(n, tang)
+    nmapped = _unit(tang * ntex[..., 0:1] + bitan * ntex[..., 1:2] +
+                    n * ntex[..., 2:3])
+    n = torch.where(has_nm[..., None], nmapped, n)
+    # emissive_texture modulates the emissive factor; the glTF
+    # metallic-roughness packing is G = roughness, B = metallic; the
+    # occlusion texture's R attenuates the albedo (folded into the
+    # diffuse colour, as the reference resolve does)
+    has_em, em_tx = channel(51)
+    emi = torch.where(has_em[..., None], mat[..., 4:7] * em_tx[..., :3],
+                      mat[..., 4:7])
+    has_mr, mr_tx = channel(55)
+    met = torch.where(has_mr, mat[..., 7] * mr_tx[..., 2], mat[..., 7])
+    rgh = torch.where(has_mr, mat[..., 8] * mr_tx[..., 1], mat[..., 8])
+    has_oc, oc_tx = channel(59)
+    base2 = torch.where(has_oc[..., None], mat[..., 0:3] * oc_tx[..., 0:1],
+                        mat[..., 0:3])
+    mat = torch.cat([base2, mat[..., 3:4], emi, met[..., None],
+                     rgh[..., None], mat[..., 9:]], -1)
+    return n, mat, ok, rec, px, py, iw
+
+
+def _parallax(atlas, rec, n, ok, u, v, px, py, ray, nl):
+    """Parallax occlusion (ref: parallax_mapping.wesl parallaxed_uv): the
+    view ray marches `nl` depth layers through the depth map (srec 46:50
+    rect, 50 scale; a larger texel is deeper), one secant refinement at
+    the crossing; returns the shifted (u, v)."""
+    d0u, d0v = rec[..., 46], rec[..., 47]
+    d1u, d1v = rec[..., 48], rec[..., 49]
+    pscale = rec[..., 50]
+    has_pom = (d1u > d0u) & (pscale > 0.0) & ok
+    vx = -(ray[0, 0] + px * ray[1, 0] + py * ray[2, 0])
+    vy = -(ray[0, 1] + px * ray[1, 1] + py * ray[2, 1])
+    vz = -(ray[0, 2] + px * ray[1, 2] + py * ray[2, 2])
+    inv_vl = torch.rsqrt(torch.clamp(vx * vx + vy * vy + vz * vz,
+                                     min=1e-12))
+    vx, vy, vz = vx * inv_vl, vy * inv_vl, vz * inv_vl
+    tg = rec[..., 31:34]
+    tg = tg - n * (tg[..., 0:1] * n[..., 0:1] + tg[..., 1:2] * n[..., 1:2] +
+                   tg[..., 2:3] * n[..., 2:3])
+    tg = _unit(tg)
+    bt = cross(n, tg)
+    vt = vx * tg[..., 0] + vy * tg[..., 1] + vz * tg[..., 2]
+    vb = vx * bt[..., 0] + vy * bt[..., 1] + vz * bt[..., 2]
+    vn = torch.clamp(vx * n[..., 0] + vy * n[..., 1] + vz * n[..., 2],
+                     min=0.05)
+    ou = pscale * vt / vn          # uv shift per unit of map depth
+    ov = pscale * vb / vn
+
+    def dsample(uu, vv):
+        fu_ = uu - torch.floor(uu)
+        fv_ = vv - torch.floor(vv)
+        return sample_atlas(atlas, torch.stack(
+            [d0u + fu_ * (d1u - d0u), d0v + fv_ * (d1v - d0v)], -1))[..., 0]
+
+    prev_d = torch.zeros_like(u)
+    prev_h = dsample(u, v)
+    found = prev_h <= 0.0
+    best = torch.zeros_like(u)
+    for i in range(1, nl + 1):
+        d_i = torch.full_like(u, i / nl)
+        h_i = dsample(u - d_i * ou, v - d_i * ov)
+        below = d_i >= h_i
+        newly = below & ~found
+        denom = (prev_h - prev_d) - (h_i - d_i)
+        tfrac = torch.clamp((prev_h - prev_d) / torch.where(
+            torch.abs(denom) > 1e-6, denom, torch.full_like(denom, 1e-6)),
+            0.0, 1.0)
+        d_hit = prev_d + tfrac * (d_i - prev_d)
+        best = torch.where(newly, d_hit, best)
+        found = found | below
+        prev_d, prev_h = d_i, h_i
+    best = torch.where(found, best, torch.ones_like(best))
+    return (torch.where(has_pom, u - best * ou, u),
+            torch.where(has_pom, v - best * ov, v))
+
+
+def resolve_shade(winner, srec, atlas=None, ray=None, parallax_layers=0):
+    """Per-pixel varyings and material of the visibility buffer's winners
+    (ref: the meshlet resolve_material position). winner (H, W) int32
+    (-1 = background), srec (T, SREC) from pack_planes_h. One 64-wide row
+    gather a pixel. Returns (normal (H, W, 3) unit, mat (H, W, 17, or 20
+    with tint), ok (H, W)); mat columns: rgba 0:4, emissive 4:7, metallic
+    7, roughness 8, clearcoat 9:11, tangent 11:14, anisotropy 14:16,
+    reflectance 16, tint 17:20.
+
+    With `atlas` (AH, AW, 4), perspective-correct UVs sample it, wrapped
+    (REPEAT) inside each rect: the base-colour texture modulates rgba, a
+    normal map bends the normal through the per-triangle TBN, and the
+    emissive, metallic-roughness and occlusion textures modulate their
+    factors. parallax_layers > 0 with `ray` (3, 3) (the camera's pixel-ray
+    planes: world direction = ray[0] + px * ray[1] + py * ray[2]) first
+    shifts the UVs by a parallax-occlusion march through the depth map."""
+    n, mat, ok, *_ = _resolve(winner, srec, atlas, ray, parallax_layers)
+    return n, mat, ok
+
+
+def resolve_forward(winner, srec, light_vec, color_planar, atlas=None,
+                    ray=None, parallax_layers=0):
+    """Forward Lambert directional + ambient shade of the visibility
+    buffer's winners (the lighting of resolve_flat, per pixel), composed
+    over color_planar (4, H, W) (winner == -1 keeps it). With an atlas, a
+    lightmap rect (srec 38:42) adds albedo * lightmap, sampled at the
+    mesh UVs before any parallax shift (ref: the lightmap term of pbr
+    shading)."""
+    n, mat, ok, rec, px, py, iw = _resolve(winner, srec, atlas, ray,
+                                           parallax_layers)
+    lam = torch.clamp(-(n[..., 0] * light_vec[0] + n[..., 1] * light_vec[1] +
+                        n[..., 2] * light_vec[2]), min=0.0)
+    rgb = mat[..., 0:3] * (light_vec[6:9] + light_vec[3:6] * lam[..., None]) \
+        + mat[..., 4:7]
+    if atlas is not None:
+        u = (rec[..., 21] * px + rec[..., 22] * py + rec[..., 23]) / iw
+        v = (rec[..., 24] * px + rec[..., 25] * py + rec[..., 26]) / iw
+        l0u, l0v = rec[..., 38], rec[..., 39]
+        l1u, l1v = rec[..., 40], rec[..., 41]
+        has_lm = (l1u > l0u) & ok
+        fu = u - torch.floor(u)
+        fv = v - torch.floor(v)
+        lm = sample_atlas(atlas, torch.stack(
+            [l0u + fu * (l1u - l0u), l0v + fv * (l1v - l0v)], -1))
+        rgb = rgb + torch.where(has_lm[..., None], mat[..., 0:3] * lm[..., :3],
+                                torch.zeros_like(rgb))
+    out = torch.cat([rgb, mat[..., 3:4]], -1).permute(2, 0, 1)
+    return torch.where(ok[None], out, color_planar)
+
+
+def resolve_gbuf(winner, srec, gbuf, atlas=None, ray=None,
+                 parallax_layers=0):
+    """G-buffer write from the visibility buffer's winners (ref: the
+    deferred prepass, bevy_core_pipeline/src/deferred/). Planes: albedo
+    rgba 0:4, normal 4:7, emissive 7:10, metallic 10, roughness 11,
+    clearcoat 12, clearcoat roughness 13, anisotropy tangent 14:17 (the
+    mesh tangent orthonormalised against the normal, rotated about it by
+    the material's anisotropy rotation; ref: anisotropy.wesl), anisotropy
+    strength 17, reflectance 18, specular tint 19:22 (with 67-wide
+    records); the first gbuf.shape[0] of them are written, winner == -1
+    keeps the incoming gbuf."""
+    n, mat, ok, *_ = _resolve(winner, srec, atlas, ray, parallax_layers)
+    tang = mat[..., 11:14]
+    tang = _unit(tang - n * torch.sum(tang * n, -1, keepdim=True))
+    rot = mat[..., 15:16]
+    trot = tang * torch.cos(rot) + cross(n, tang) * torch.sin(rot)
+    gparts = [mat[..., 0:4], n, mat[..., 4:7], mat[..., 7:11], trot,
+              mat[..., 14:15], mat[..., 16:17]]            # (H, W, 19)
+    if mat.shape[-1] >= 20:
+        gparts.append(mat[..., 17:20])                     # tint 19:22
+    planes = torch.cat(gparts, -1)[..., :gbuf.shape[0]].permute(2, 0, 1)
     return torch.where(ok[None], planes, gbuf)

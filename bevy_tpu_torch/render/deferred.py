@@ -19,7 +19,7 @@ With `shards` the shade runs in row bands over a ShardMesh
 grid padded to whole bands.
 
 Not ported, each raising NotImplementedError that names its ROADMAP item:
-the directional shadow map (A8), specular tint (A4b) and anisotropy (A5)
+the directional shadow map (A8), specular tint (A4b) and anisotropy (A4b)
 in the plugin; the kernel itself implements every variant.
 """
 
@@ -115,7 +115,7 @@ def _material_flags(world):
         return world.column(MeshMaterial, name).cpu().numpy()[rows]
 
     if np.any(col("anisotropy_strength") > 0.0):
-        raise _unported("anisotropy in the deferred plugin", "A5")
+        raise _unported("anisotropy in the deferred plugin", "A4b")
     tint = col("specular_tint")
     if np.any(np.abs(tint - 1.0).max(-1) > 1e-6):
         raise _unported("specular tint in the deferred plugin", "A4b")

@@ -33,6 +33,25 @@ class Mesh:
     def num_triangles(self):
         return self.triangles.shape[0]
 
+    def tri_tangents(self):
+        """(T, 3) per-triangle tangents in mesh space from position / UV
+        derivatives (ref: bevy_mesh's mikktspace pass, per-face flavour);
+        they rotate with the instance like normals. Host numpy."""
+        p = self.positions[self.triangles]          # (T, 3, 3)
+        uv = self.uvs[self.triangles]               # (T, 3, 2)
+        e1 = p[:, 1] - p[:, 0]
+        e2 = p[:, 2] - p[:, 0]
+        d1 = uv[:, 1] - uv[:, 0]
+        d2 = uv[:, 2] - uv[:, 0]
+        det = d1[:, 0] * d2[:, 1] - d2[:, 0] * d1[:, 1]
+        inv = np.where(np.abs(det) > 1e-8, 1.0 / np.where(det == 0, 1, det),
+                       0.0)[:, None]
+        t = (e1 * d2[:, 1:2] - e2 * d1[:, 1:2]) * inv
+        n = np.linalg.norm(t, axis=1, keepdims=True)
+        fallback = np.tile([1.0, 0.0, 0.0], (len(t), 1))
+        return np.where(n > 1e-8, t / np.maximum(n, 1e-8),
+                        fallback).astype(np.float32)
+
 
 def cuboid(x=1.0, y=1.0, z=1.0) -> Mesh:
     """ref: bevy_mesh/src/primitives/dim3/cuboid.rs — 24 verts (per-face

@@ -11,12 +11,16 @@ Three routes, as in the JAX package, each reaching its own kernels:
   gather, cluster cull, clipless plane setup, window decomposition, then
   B1 window splat (ops/raster3d_splat.fused_eval_composite) for small
   clusters and B2 streaming tiles (ops/raster3d_visbuf.raster_visbuf) for
-  giant and near-plane ones, into one depth + winner-id buffer, and a
-  shade-once flat resolve (forward) or a one-gather G-buffer write
-  (`deferred=True`; render/deferred.py shades it). With
-  `Mesh3dPlugin(shards=...)` flat-forward groups raster sharded over a
-  ShardMesh (parallel/raster.py `sharded_instance_raster`, window
-  composite B6).
+  giant and near-plane ones, into one depth + winner-id buffer. Flat
+  meshes without an atlas then take a shade-once flat resolve (forward)
+  or a one-gather G-buffer write (`deferred=True`; render/deferred.py
+  shades it); smooth meshes, textured materials (`atlas=`: base colour,
+  normal, lightmap, emissive, metallic-roughness and occlusion textures,
+  parallax occlusion, uv transforms) and skinned meshes
+  (render/skinned.py) the 64-wide shade records and a per-pixel resolve,
+  forward or into the G-buffer. With `Mesh3dPlugin(shards=...)`
+  flat-forward groups raster sharded over a ShardMesh
+  (parallel/raster.py `sharded_instance_raster`, window composite B6).
 - **The general route** — `Mesh3dPlugin(backend="xla")` and
   `make_mesh_pass(..., plugin=None)` (JAX's general branch, which its
   "auto" takes for a forward pass everywhere but on a TPU). One mesh:
@@ -69,7 +73,7 @@ from bevy_tpu_torch.ops.raster3d_tris import (
 from bevy_tpu_torch.ops.raster3d_visbuf import (
     ZREC, bin_clusters, cluster_records, cluster_screen_aabbs,
     pack_flat_gbuf, pack_flat_shade, pack_planes_h, raster_visbuf,
-    resolve_flat, resolve_gbuf_flat,
+    resolve_flat, resolve_forward, resolve_gbuf, resolve_gbuf_flat,
 )
 from bevy_tpu_torch.parallel import as_mesh
 from bevy_tpu_torch.parallel import raster as par_raster
@@ -151,6 +155,7 @@ class AmbientLight:
 
 
 EXPANSION = "mesh_expansion"
+MESH_ATLAS = "mesh_atlas"      # {"data": (AH, AW, 4) f32}, the material atlas
 GROUP_ROUTE = "the group route"
 GENERAL_ROUTE = "the general route"
 
@@ -162,17 +167,19 @@ def _unported(feature, item, route=None):
         f"(ROADMAP {item})")
 
 
-# MeshMaterial fields the group route's flat records do not read, with the
-# default a world must keep and the ROADMAP item that brings each
+# MeshMaterial fields the group route does not read yet, with the default
+# a world must keep and the ROADMAP item that brings each
 _MATERIAL_GATES = (
     ("specular_transmission", 0.0, "transmission", "A8"),
     ("diffuse_transmission", 0.0, "transmission", "A8"),
-    ("anisotropy_strength", 0.0, "anisotropy", "A5"),
-    ("parallax_depth_scale", 0.0, "parallax mapping", "A5"),
+    ("anisotropy_strength", 0.0, "anisotropy", "A4b"),
     ("depth_bias", 0.0, "depth bias", "A8"),
-    ("uv_transform", (1.0, 0.0, 0.0, 1.0, 0.0, 0.0), "uv transforms", "A5"),
     ("specular_tint", (1.0, 1.0, 1.0), "specular tint", "A4b"),
 )
+# Atlas rect columns whose records are built only where a live row sets
+# them (the reference's trace-time gates), by the max corner's default
+_CHANNEL_RECTS = (("emr", "em"), ("mrr", "mr"), ("ocr", "oc"))
+_IDENTITY_UVT = (1.0, 0.0, 0.0, 1.0, 0.0, 0.0)
 
 
 def _rebuild_expansion(world, plugin):
@@ -183,9 +190,10 @@ def _rebuild_expansion(world, plugin):
     instance shares one mesh, and installs the pool and EXPANSION tables
     (`install_expansion`), as the JAX package does for its non-Pallas
     backends. The group route groups mesh instances per mesh (each group
-    renders as one uniform batch) and refuses worlds its flat records
-    cannot draw: transparency, the _MATERIAL_GATES fields, smooth-shaded
-    meshes."""
+    renders as one uniform batch), refuses transparency and the
+    _MATERIAL_GATES fields, and reads the live material rows once for
+    the features a frame specialises on (parallax occlusion, uv
+    transforms, the channel textures)."""
     route = plugin.route
     rows = world.query_rows(Mesh3d)
     cam_rows = world.query_rows(Camera3d)
@@ -205,24 +213,30 @@ def _rebuild_expansion(world, plugin):
             if len(ids) == 1 else None
         install_expansion(world, plugin.pool)
         return
+    names = ("base_color", "parallax_depth_scale", "uv_transform") + \
+        tuple(g[0] for g in _MATERIAL_GATES) + \
+        tuple(f"{c}_max" for _, c in _CHANNEL_RECTS)
     col = {name: world.column(MeshMaterial, name).cpu().numpy()[rows]
-           for name in ("base_color",) + tuple(g[0] for g in _MATERIAL_GATES)}
+           for name in names}
     if np.any(col["base_color"][:, 3] < 0.999):
         raise _unported("the transparent phase (OIT)", "A8", route)
     for name, default, feature, item in _MATERIAL_GATES:
         if np.any(col[name] != np.asarray(default, np.float32)):
             raise _unported(feature, item, route)
+    textured = plugin.atlas is not None
+    plugin._spec = dict(
+        pom=textured and bool(np.any(col["parallax_depth_scale"] > 0.0)),
+        uvt=bool(np.any(col["uv_transform"] !=
+                        np.asarray(_IDENTITY_UVT, np.float32))),
+        **{key: bool(np.any(col[f"{c}_max"] != 0.0))
+           for key, c in _CHANNEL_RECTS})
     plugin._groups = []
     for mid in np.unique(mesh_ids):
-        m = plugin.pool.meshes[int(mid)]
-        nrm = m.normals[m.triangles.astype(np.int64)]
-        if not (np.all(nrm[:, 0] == nrm[:, 1]) and
-                np.all(nrm[:, 0] == nrm[:, 2])):
-            raise _unported("smooth-shaded (non-flat) meshes", "A5", route)
         grows = rows[mesh_ids == mid].astype(np.int64)
         plugin._groups.append(dict(
-            uniform_batch(m, dev), n=len(grows),
-            rows=torch.as_tensor(grows, device=dev)))
+            uniform_batch(plugin.pool.meshes[int(mid)], dev,
+                          textured=textured),
+            n=len(grows), rows=torch.as_tensor(grows, device=dev)))
 
 
 def install_expansion(world, pool):
@@ -289,12 +303,16 @@ def _uniform_tables(mesh, rows, device):
     }
 
 
-def uniform_batch(mesh, device, cs=12):
+def uniform_batch(mesh, device, cs=12, rigid=True, textured=False):
     """Per-mesh constants of a uniform batch, on the device once per
     prepare (so a frame copies nothing from the host): homogeneous
     positions, normals, the triangle index table padded to whole clusters
-    (padding = degenerate), the bounding sphere and the static coplanar
-    quad pairing (single-cluster, mostly-quad meshes only)."""
+    (padding = degenerate), the bounding sphere, whether every triangle's
+    corner normals are equal ("flat": the flat records shade it exactly),
+    and for `rigid` geometry the static coplanar quad pairing
+    (single-cluster, mostly-quad meshes only; skinned meshes pass
+    rigid=False). `textured` adds the corner UVs ("cuv", (TCP, 3, 2)) and
+    the mesh-space triangle tangents ("tan", (TCP, 3)), zero-padded."""
     tc0 = mesh.num_triangles
     tcp = (tc0 + cs - 1) // cs * cs
     tris = np.zeros((tcp, 3), np.int64)
@@ -302,19 +320,30 @@ def uniform_batch(mesh, device, cs=12):
     pos = mesh.positions
     cen = (pos.min(0) + pos.max(0)) * 0.5
     quads = None
-    if tcp == cs:
+    if rigid and tcp == cs:
         entries = coplanar_quad_pairs(pos, mesh.triangles)
         if 2 * sum(1 for e in entries if e[0] == "pair") >= tc0:
             quads = entries
     ones = np.ones((mesh.num_vertices, 1), np.float32)
-    return {
+    nrm = mesh.normals[mesh.triangles.astype(np.int64)]
+    out = {
         "ph": torch.as_tensor(np.concatenate([pos, ones], 1), device=device),
         "normals": torch.as_tensor(mesh.normals, device=device),
         "tris": torch.as_tensor(tris, device=device),
         "center": torch.as_tensor(cen, device=device),
         "radius": float(np.linalg.norm(pos - cen, axis=1).max()),
         "quads": quads,
+        "flat": bool(np.all(nrm[:, 0] == nrm[:, 1]) and
+                     np.all(nrm[:, 0] == nrm[:, 2])),
     }
+    if textured:
+        cuv = np.zeros((tcp, 3, 2), np.float32)
+        cuv[:tc0] = mesh.uvs[mesh.triangles.astype(np.int64)]
+        tan = np.zeros((tcp, 3), np.float32)
+        tan[:tc0] = mesh.tri_tangents()
+        out["cuv"] = torch.as_tensor(cuv, device=device)
+        out["tan"] = torch.as_tensor(tan, device=device)
+    return out
 
 
 def directional_light_vec(light, amb):
@@ -335,23 +364,45 @@ def raster_batched(clip, nrm, batch, inst_ok, mat_inst, light_vec,
                    target, stats, *, width, height, tile_h=16, tile_w=128,
                    max_per_tile=512, cluster_size=12, win_h=32,
                    window_budget=65536, eval_tris=None,
-                   visible_budget=65536, deferred=False):
-    """Visibility-buffer raster of one uniform batch, flat shaded.
+                   visible_budget=65536, deferred=False, flat_ok=False,
+                   corner_uv=None, uvr_i=None, uvt_i=None, tan_i=None,
+                   nmr_i=None, lmr_i=None, dmr_i=None, emr_i=None,
+                   mrr_i=None, ocr_i=None, atlas=None, ray=None,
+                   parallax_layers=0):
+    """Visibility-buffer raster of one uniform batch.
 
     clip (Ni, VC, 4) clip-space positions, nrm (Ni, VC, 3) world normals,
     batch the mesh's `uniform_batch` constants, inst_ok (Ni,) bool,
-    mat_inst (Ni, 9) [rgba, emissive, metallic, roughness] forward, or
-    (Ni, 15) with clearcoat, clearcoat roughness, anisotropy, anisotropy
-    rotation, parallax depth scale and reflectance when `deferred`.
-    Writes target.depth, and target.color (forward, composed over the
-    incoming color) or target.gbuffer (deferred, see resolve_gbuf_flat).
+    mat_inst (Ni, 9) [rgba, emissive, metallic, roughness], or (Ni, 15)
+    with clearcoat, clearcoat roughness, anisotropy, anisotropy rotation,
+    parallax depth scale and reflectance (always for the shade records or
+    `deferred`). Writes target.depth, and target.color (forward, composed
+    over the incoming color) or target.gbuffer (deferred).
+
+    Two record paths, one raster (B1 for two window classes, then B2 for
+    the fallback clusters):
+    - flat (`flat_ok`: every triangle's corner normals are equal, and no
+      corner_uv): flat records shaded once a triangle (resolve_flat,
+      resolve_gbuf_flat);
+    - otherwise the 64-wide shade records (pack_planes_h(build_srec=True))
+      and the per-pixel resolve_forward / resolve_gbuf. corner_uv (TC, 3,
+      2) static mesh UVs with uvr_i (Ni, 4) base-colour atlas rects, an
+      optional uv_transform uvt_i (Ni, 6) (the Affine2 on mesh UVs before
+      the rect wrap), tan_i (Ni, TCP, 3) world tangents a padded triangle,
+      the atlas rects nmr_i, lmr_i, dmr_i, emr_i, mrr_i, ocr_i (Ni, 4),
+      atlas (AH, AW, 4), and ray (3, 3) with parallax_layers > 0 for
+      parallax occlusion (see ops/raster3d_visbuf.resolve_shade).
 
     Profiler spans (torch.profiler): mesh:setup, mesh:windows,
     mesh:splat_B1, mesh:fallback_bin, mesh:stream_B2, mesh:resolve."""
+    srec_in = None if flat_ok and corner_uv is None else dict(
+        corner_uv=corner_uv, uvr_i=uvr_i, uvt_i=uvt_i, tan_i=tan_i,
+        nmr_i=nmr_i, lmr_i=lmr_i, dmr_i=dmr_i, emr_i=emr_i, mrr_i=mrr_i,
+        ocr_i=ocr_i)
     with span("mesh:setup"):
         setup = _setup(clip, nrm, batch, inst_ok, mat_inst, light_vec,
                        width, height, cluster_size, eval_tris, visible_budget,
-                       deferred)
+                       deferred, srec_in)
     aabb, cl_valid, zmax, zrec, frec, rec_rows, nslots, nedge, k = setup
     cs = cluster_size
     dev = clip.device
@@ -409,19 +460,28 @@ def raster_batched(clip, nrm, batch, inst_ok, mat_inst, light_vec,
     stats.tile_overflow = stats.tile_overflow + st["tile_overflow"]
     target.depth = depth
     with span("mesh:resolve"):
-        if deferred:
-            target.gbuffer = resolve_gbuf_flat(winner.to(torch.int32), frec,
-                                               target.gbuffer)
+        win = winner.to(torch.int32)
+        if srec_in is not None and deferred:
+            target.gbuffer = resolve_gbuf(win, frec, target.gbuffer,
+                                          atlas=atlas, ray=ray,
+                                          parallax_layers=parallax_layers)
+        elif srec_in is not None:
+            target.color = resolve_forward(win, frec, light_vec,
+                                           target.color, atlas=atlas,
+                                           ray=ray,
+                                           parallax_layers=parallax_layers)
+        elif deferred:
+            target.gbuffer = resolve_gbuf_flat(win, frec, target.gbuffer)
         else:
-            target.color = resolve_flat(winner.to(torch.int32), frec,
-                                        target.color)
+            target.color = resolve_flat(win, frec, target.color)
 
 
 def _setup(clip, nrm, batch, inst_ok, mat_inst, light_vec, width, height,
-           cs, eval_tris, visible_budget, deferred):
-    """Corner extraction, cluster cull, clipless plane setup, flat shade
-    (forward) or G-buffer (deferred) records and the window kernel's
-    record rows of one uniform batch."""
+           cs, eval_tris, visible_budget, deferred, srec_in):
+    """Corner extraction, cluster cull, clipless plane setup, the records
+    the resolve gathers (flat shade, flat G-buffer or, with `srec_in`, the
+    shade records) and the window kernel's record rows of one uniform
+    batch."""
     dev = clip.device
     ni = clip.shape[0]
     tri_idx = batch["tris"]
@@ -443,15 +503,24 @@ def _setup(clip, nrm, batch, inst_ok, mat_inst, light_vec, width, height,
     # -- run_phase, identity selection: every cluster is a candidate, its
     #    triangles valid where the cluster is (padding triangles are
     #    degenerate and fail pack_planes_h's guards)
-    nm = mat_inst.shape[1]
-    mat_tri = mat_inst[:, None, None, :].expand(ni, cc_num, cs, nm) \
-        .reshape(n_cl, cs, nm)
-    zrec, valid = pack_planes_h(cc, cn, cl_valid[:, None].expand(n_cl, cs),
-                                width, height)
-    if deferred:
-        frec = pack_flat_gbuf(cn, mat_tri, valid)
+    def per_inst(src):       # (Ni, w) -> (n_cl, cs, w), row-major ids
+        w_ = src.shape[1]
+        return src[:, None, None, :].expand(ni, cc_num, cs, w_) \
+            .reshape(n_cl, cs, w_)
+
+    mat_tri = per_inst(mat_inst)
+    tri_ok = cl_valid[:, None].expand(n_cl, cs)
+    if srec_in is not None:
+        zrec, frec, valid = pack_planes_h(
+            cc, cn, tri_ok, width, height, build_srec=True,
+            materials=mat_tri, **_srec_parts(srec_in, batch, per_inst, ni,
+                                             cc_num, cs))
     else:
-        frec = pack_flat_shade(cn, mat_tri, light_vec, valid)
+        zrec, valid = pack_planes_h(cc, cn, tri_ok, width, height)
+        if deferred:
+            frec = pack_flat_gbuf(cn, mat_tri, valid)
+        else:
+            frec = pack_flat_shade(cn, mat_tri, light_vec, valid)
     frec = frec.reshape(n_cl * cs, frec.shape[-1])
     ntri_f = cs if eval_tris is None else min(eval_tris, cs)
     quads = batch["quads"]
@@ -466,6 +535,43 @@ def _setup(clip, nrm, batch, inst_ok, mat_inst, light_vec, width, height,
         rec_rows = build_rec_rows(zrec, cs, nslots)
         nedge = 3
     return aabb, cl_valid, zmax, zrec, frec, rec_rows, nslots, nedge, k
+
+
+def _srec_parts(srec_in, batch, per_inst, ni, cc_num, cs):
+    """pack_planes_h's per-triangle shade-record inputs of one uniform
+    batch, in (n_cl, cs, ...) cluster shapes (JAX's run_phase keeps flat
+    (k * cs, ...) shapes: the same row-major triangles, elementwise)."""
+    n_cl = ni * cc_num
+    cuv = rect = None
+    if srec_in["corner_uv"] is not None and srec_in["uvr_i"] is not None:
+        cuv = batch["cuv"].reshape(cc_num, cs, 3, 2)[None] \
+            .expand(ni, cc_num, cs, 3, 2).reshape(n_cl, cs, 3, 2)
+        rect = per_inst(srec_in["uvr_i"])
+        if srec_in["uvt_i"] is not None:
+            # uv_transform (ref: StandardMaterial::uv_transform, an Affine2
+            # on mesh UVs), before the per-instance atlas-rect wrap
+            a = per_inst(srec_in["uvt_i"])
+            u, v = cuv[..., 0], cuv[..., 1]
+            cuv = torch.stack(
+                [a[..., 0:1] * u + a[..., 1:2] * v + a[..., 4:5],
+                 a[..., 2:3] * u + a[..., 3:4] * v + a[..., 5:6]], -1)
+    tan = nm = None
+    if srec_in["tan_i"] is not None:
+        tan = srec_in["tan_i"].reshape(n_cl, cs, 3)
+        # no normal map: a zero rect disables sampling, the tangent still
+        # reaches the record (anisotropy needs it)
+        nm = per_inst(srec_in["nmr_i"]) \
+            if srec_in["nmr_i"] is not None and cuv is not None \
+            else tan.new_zeros((n_cl, cs, 4))
+
+    def rect_of(key):
+        x = srec_in[key]
+        return per_inst(x) if x is not None and cuv is not None else None
+
+    return dict(cuv=cuv, tex_rect=rect, tangents=tan, nm_rect=nm,
+                lm_rect=rect_of("lmr_i"), dm_rect=rect_of("dmr_i"),
+                em_rect=rect_of("emr_i"), mr_rect=rect_of("mrr_i"),
+                oc_rect=rect_of("ocr_i"))
 
 
 def _frustum_cull(batch, gt_t, gt_r, gt_s, inst_ok, view, fov, near, aspect,
@@ -669,7 +775,8 @@ ROUTE_OF_BACKEND = {"auto": GROUP_ROUTE, "pallas": GROUP_ROUTE,
 def make_mesh_pass(width, height, plugin=None, tile_h=32, tile_w=128,
                    pairs_per_tri=2, max_per_tile=256, backend="auto",
                    win_h=32, window_budget=65536, eval_tris=None,
-                   visible_budget=65536, cull_budget=None, deferred=False):
+                   visible_budget=65536, cull_budget=None, deferred=False,
+                   parallax_layers=8):
     """The mesh pass system. plugin=None, or a plugin with backend="xla",
     builds the general route's pass (B7); any other backend the group
     route's (B1/B2, or B6 when sharded). See the module docstring."""
@@ -686,7 +793,8 @@ def make_mesh_pass(width, height, plugin=None, tile_h=32, tile_w=128,
                        max_per_tile=max_per_tile, win_h=win_h,
                        window_budget=window_budget, eval_tris=eval_tris,
                        visible_budget=visible_budget,
-                       cull_budget=cull_budget, deferred=deferred)
+                       cull_budget=cull_budget, deferred=deferred,
+                       parallax_layers=parallax_layers)
 
 
 def _general_pass(width, height, plugin, *, tile_h, tile_w, pairs_per_tri,
@@ -758,9 +866,25 @@ def _general_pass(width, height, plugin, *, tile_h, tile_w, pairs_per_tri,
     return mesh_pass
 
 
+def camera_ray_planes(fov, rotation, width, height):
+    """(3, 3) pixel-ray planes of a perspective camera over the full frame:
+    the world direction through absolute pixel (px, py) is ray[0] + px *
+    ray[1] + py * ray[2] (it looks down -z in view space). fov and
+    rotation are the camera's (device tensors)."""
+    tf_r = torch.tan(fov * 0.5)
+    ta_r = tf_r * (width / height)
+    zero = torch.zeros_like(tf_r)
+    a_v = torch.stack([-ta_r, tf_r, -torch.ones_like(tf_r)])
+    b_v = torch.stack([2.0 * ta_r / width, zero, zero])
+    c_v = torch.stack([zero, -2.0 * tf_r / height, zero])
+    return torch.stack([quat_rotate_vec3(rotation, a_v),
+                        quat_rotate_vec3(rotation, b_v),
+                        quat_rotate_vec3(rotation, c_v)])
+
+
 def _group_pass(width, height, plugin, *, tile_h, tile_w, max_per_tile,
                 win_h, window_budget, eval_tris, visible_budget, cull_budget,
-                deferred):
+                deferred, parallax_layers):
     """The group route's pass (uniform batches on B1/B2, B6 sharded)."""
     from bevy_tpu_torch.transform import GlobalTransform
 
@@ -770,12 +894,18 @@ def _group_pass(width, height, plugin, *, tile_h, tile_w, max_per_tile,
                   cam=Query(Read(Camera3d), Read(GlobalTransform)),
                   light=Query(Read(DirectionalLight), Read(GlobalTransform)),
                   amb=Res(AmbientLight),
+                  matlas=Res(MESH_ATLAS),
                   target=ResMut(RenderTarget.RESOURCE),
                   stats=ResMut("render_stats")):
         ci, has_cam, view, vp, visrow = _camera_view(q, cam, width, height)
         aspect = width / height
         lv = directional_light_vec(light, amb)
         mm = q.mesh_material
+        spec = plugin._spec
+        textured = plugin.atlas is not None
+        ray = camera_ray_planes(
+            cam.camera3d.fov[ci], cam.global_transform.rotation[ci], width,
+            height) if spec["pom"] else None
         for grp in plugin._groups:
             rows = grp["rows"]
             gt_t = q.global_transform.translation[rows]
@@ -800,15 +930,16 @@ def _group_pass(width, height, plugin, *, tile_h, tile_w, max_per_tile,
                 mvp = torch.einsum("ij,njk->nik", vp, mats)
                 clip = torch.einsum("nij,vj->nvi", mvp, grp["ph"])  # (Ni,VC,4)
                 nrm = quat_rotate_vec3(gt_r[:, None, :], grp["normals"][None])
+            flat = grp["flat"] and not textured
             cols = [mm.base_color[rows], mm.emissive[rows],
                     mm.metallic[rows][:, None],
                     mm.perceptual_roughness[rows][:, None]]
-            if deferred:
+            if deferred or not flat:
                 cols += [getattr(mm, f)[rows][:, None] for f in (
                     "clearcoat", "clearcoat_roughness", "anisotropy_strength",
                     "anisotropy_rotation", "parallax_depth_scale",
                     "reflectance")]
-            if plugin.shard_mesh is not None and not deferred:
+            if plugin.shard_mesh is not None and flat and not deferred:
                 # multi-device: the flat-forward group rasters sharded over
                 # instances (the padding instances are invalid)
                 shm = plugin.shard_mesh
@@ -826,12 +957,30 @@ def _group_pass(width, height, plugin, *, tile_h, tile_w, max_per_tile,
                 stats.pair_overflow = stats.pair_overflow + ovf
                 stats.fallback_clusters = stats.fallback_clusters + nfb
                 continue
+            tex = {}
+            if textured:
+                def rect(c, _rows=rows):
+                    return torch.cat([getattr(mm, f"{c}_min")[_rows],
+                                      getattr(mm, f"{c}_max")[_rows]], 1)
+
+                tex = dict(
+                    corner_uv=grp["cuv"], uvr_i=rect("uv"),
+                    nmr_i=rect("nm"), lmr_i=rect("lm"), dmr_i=rect("dm"),
+                    # mesh-space triangle tangents turn with the instance
+                    tan_i=quat_rotate_vec3(gt_r[:, None, :],
+                                           grp["tan"][None]),
+                    atlas=matlas.data, ray=ray,
+                    parallax_layers=parallax_layers if spec["pom"] else 0,
+                    **{f"{key}_i": rect(c) if spec[key] else None
+                       for key, c in _CHANNEL_RECTS})
             raster_batched(
                 clip, nrm, grp, inst_ok, torch.cat(cols, 1), lv, target,
                 stats, width=width, height=height, tile_h=tile_h,
                 tile_w=tile_w, max_per_tile=max_per_tile, win_h=win_h,
                 window_budget=window_budget, eval_tris=eval_tris,
-                visible_budget=visible_budget, deferred=deferred)
+                visible_budget=visible_budget, deferred=deferred,
+                flat_ok=grp["flat"],
+                uvt_i=mm.uv_transform[rows] if spec["uvt"] else None, **tex)
 
     return mesh_pass
 
@@ -850,20 +999,30 @@ class Mesh3dPlugin(Plugin):
     ShardMesh: flat-forward groups then raster over those devices
     (parallel/raster.py). Clusters too large for windows are then counted
     into pair_overflow and fallback_clusters, not drawn, as in the JAX
-    package. A deferred pass stays on one device; the general route
-    takes no shards."""
+    package. A deferred pass, and any group the shade records draw, stay
+    on one device; the general route takes no shards.
+
+    atlas: None, an AtlasBuilder (built onto the world's device at
+    prepare) or an (AH, AW, 4) tensor of the material textures, which
+    MeshMaterial's *_min / *_max rects index (ref: the bindless material
+    texture arrays of material_bind_groups.rs). With an atlas every group
+    of the group route takes the shade records; smooth meshes take them
+    without one. parallax_layers: the depth layers of the parallax
+    occlusion march, for materials with a depth-map rect and a
+    parallax_depth_scale above 0. The general route reads neither, as the
+    JAX package's general branch."""
 
     def __init__(self, pool: MeshPool = None, tile_h=32, tile_w=128,
                  pairs_per_tri=2, max_per_tile=256, backend="auto",
                  deferred=False, win_h=32, window_budget=65536,
                  eval_tris=None, atlas=None, visible_budget=65536,
                  occlusion_cull=False, material_fn=None, cull_budget=None,
-                 shards=None, bvh_cull=False, motion_vectors=False):
+                 shards=None, parallax_layers=8, bvh_cull=False,
+                 motion_vectors=False):
         if backend not in ROUTE_OF_BACKEND:
             raise ValueError(f"Mesh3dPlugin: unknown backend {backend!r}")
         self.route = ROUTE_OF_BACKEND[backend]
         for on, feature, item in (
-                (atlas is not None, "textured materials", "A5"),
                 (occlusion_cull, "two-phase occlusion culling", "A8"),
                 (material_fn is not None, "custom materials", "A8"),
                 (bvh_cull, "the BVH cluster cull", "A8"),
@@ -876,15 +1035,18 @@ class Mesh3dPlugin(Plugin):
         # deferred=True writes the G-buffer that DeferredLightingPlugin
         # creates and shades (the group route only, as in JAX)
         self.pool = pool or MeshPool()
+        self.atlas = atlas
         self._groups = None
         self._uniform = None
+        self._spec = None
         self.shard_mesh = as_mesh(shards)
         self.cfg = dict(tile_h=tile_h, tile_w=tile_w,
                         pairs_per_tri=pairs_per_tri,
                         max_per_tile=max_per_tile, backend=backend,
                         win_h=win_h, window_budget=window_budget,
                         eval_tris=eval_tris, visible_budget=visible_budget,
-                        cull_budget=cull_budget, deferred=deferred)
+                        cull_budget=cull_budget, deferred=deferred,
+                        parallax_layers=parallax_layers)
 
     def add_mesh(self, mesh, lods: int = 1) -> int:
         if lods > 1:
@@ -907,6 +1069,15 @@ class Mesh3dPlugin(Plugin):
         plugin = self
 
         def finish_pool(world):
+            a = plugin.atlas
+            if a is None:
+                data = torch.zeros((1, 1, 4), device=world.device)
+            elif hasattr(a, "build"):
+                data = a.build(world.device)
+            else:
+                data = torch.as_tensor(a, dtype=torch.float32,
+                                       device=world.device)
+            world.state["res"][MESH_ATLAS] = {"data": data}
             _rebuild_expansion(world, plugin)
 
         app.add_prepare_hook(finish_pool)

@@ -111,7 +111,22 @@ source, all started together), then:
    on the 160k cubes' clip-space corners and normals at 1280x720
    (tile_h=16, max_per_tile=3072): B8 twice, each bit-equal to plain, with
    its cull counts, the calls and B8 timed beside its bound, overflows
-   printed.
+   printed;
+25. renders the many_foxes twin at the golden configuration (9 foxes,
+   256x144, 8 frames) against tests/goldens/foxes_f8.png, B1 (twice a
+   frame) and B2 (once) bit-equal to plain on every call, overflows 0;
+26. runs the full-size many_foxes frame (1,000 skinned, animated foxes,
+   1280x720), times 20 frames with CUDA events, checks B1 was launched
+   twice a frame, B2 once and no other kernel, prints the overflows,
+   holds one frame's B1 and B2 calls against plain with their cull
+   counts, times each against its plain version and its bound at the fox
+   frame's shapes, and profiles 10 frames by span (skin:*, mesh:*);
+27. renders the group route's shade-record worlds
+   (tests/torch_scenes.py shade_record_world: "atlas" — textured,
+   normal-mapped, parallax-occlusion, channel-textured, lightmapped and
+   uv-transformed cubes; "smooth" — smooth spheres) on the card and on
+   the CPU: the two images under the golden rule, B1 and B2 bit-equal to
+   plain on every call.
 
 The shards of phases 15-19 all sit on the one card (a ShardMesh may repeat
 a device): their work runs one shard after another.
@@ -186,6 +201,9 @@ KERNELS = {
            "bevy_tpu/ops/raster3d_pallas.py:106"),
 }
 BREAKOUT_GOLDEN = ROOT / "tests" / "goldens" / "breakout_f25.png"
+FOX_GOLDEN = ROOT / "tests" / "goldens" / "foxes_f8.png"
+FOX_GOLDEN_KW = dict(n_foxes=9, width=256, height=144, capacity=32,
+                     camera=(0.0, 3.0, 10.0), camera_pitch=-0.25)
 CUBES_XLA_GOLDEN = ROOT / "tests" / "goldens" / "cubes_f3.png"
 SHAPES_GOLDEN = ROOT / "tests" / "goldens" / "shapes_f1.png"
 BREAKOUT_GOLDEN_KW = dict(width=320, height=200, camera_scale=3.2,
@@ -1353,11 +1371,12 @@ def device_ms(fn, reps=20):
     return ms, sorted(rows, key=lambda r: -r[1])
 
 
-def time_kernel(kid, a, kw, launches, err, library=None):
+def time_kernel(kid, a, kw, launches, err, library=None,
+                where="at full size"):
     """Kernel vs plain time (CUDA events, 20 and 3 launches), the time of
     `library` (one PyTorch call computing the same function, 20 calls)
-    where there is one, and the bound at one recorded call; the
-    kernels-line entry."""
+    where there is one, and the bound at one recorded call (`where` names
+    it in the log); the kernels-line entry."""
     k_ms = cuda_ms(lambda: kernel_fn(kid)(*a, **kw), 20)
     p_ms = cuda_ms(lambda: plain_fn(kid)(*a, **kw), 3)
     lib_ms = None if library is None else cuda_ms(library, 20)
@@ -1367,11 +1386,12 @@ def time_kernel(kid, a, kw, launches, err, library=None):
     lib = "" if lib_ms is None else f", library call {lib_ms:.4f} ms"
     was = f" (before the redesign: {BEFORE_REDESIGN_MS[kid]} ms)" \
         if kid in BEFORE_REDESIGN_MS else ""
-    log(f"{kid} {KERNELS[kid][0]} at full size: kernel {k_ms:.4f} ms{was}, "
+    log(f"{kid} {KERNELS[kid][0]} {where}: kernel {k_ms:.4f} ms{was}, "
         f"plain {p_ms:.4f} ms{lib}, bound {b_ms:.4f} ms ({by}{extra}), "
         f"{b_ms / k_ms:.1%} of the bound")
     d_ms, rows = device_ms(lambda: kernel_fn(kid)(*a, **kw))
-    log(f"{kid} device time a call (20 calls queued behind a spin kernel, "
+    log(f"{kid} device time a call {where} (20 calls queued behind a spin "
+        f"kernel, "
         f"CUDA events): {d_ms:.4f} ms; by kernel (torch.profiler): "
         + ("; ".join(f"{name[:60]} {ms:.4f} ms" for name, ms in rows[:3])
            or "no record kept"))
@@ -2007,6 +2027,91 @@ def cubes_batch(app):
                 light=light, size=(H, W))
 
 
+def fox_phases(dev, n, smi):
+    """Phases 25-27: the many_foxes slice (skinned meshes on the shade
+    records) and the group route's shade-record worlds."""
+    import torch_many_foxes
+    from torch_many_cubes import profile
+    from torch_scenes import port_scene_modules, shade_record_world
+    from bevy_tpu_torch.render import frame_image
+
+    # -- 25: the fox golden configuration ---------------------------------
+    fapp = torch_many_foxes.build_app(device=dev, **FOX_GOLDEN_KW)
+    with Recorder() as rec:
+        fapp.run(max_frames=8, dt=1 / 60)
+    torch.cuda.synchronize()
+    for kid, per_frame in (("B1", 2), ("B2", 1)):
+        if len(rec.calls[kid]) != 8 * per_frame:
+            raise AssertionError(f"fox golden scene: {len(rec.calls[kid])} "
+                                 f"{kid} calls in 8 frames")
+        errs = [compare(kid, a, kw) for a, kw in rec.calls[kid]]
+        log(f"{kid} vs plain, fox golden scene: {len(errs)} calls bit-equal "
+            f"(max abs err {max(errs)})")
+    for a, kw in rec.calls["B1"][-2:]:
+        b1_cull_line("fox golden scene, frame 8", a, kw)
+    check_golden(frame_image(fapp), FOX_GOLDEN)
+    check_stats(fapp.world.state, ("pair_overflow", "tile_overflow"))
+    del fapp, rec
+
+    # -- 26: the full-size many_foxes frame --------------------------------
+    app = torch_many_foxes.build_app(device=dev)
+    ms, launches, stats, covered = timed_frames(app, n)
+    log(f"many_foxes 1000 @1280x720: {ms:.3f} ms/frame over {n} frames "
+        f"(CUDA events; {smi})")
+    others = sum(v for k, v in launches.items() if k not in ("B1", "B2"))
+    log(f"launches in those {n} frames: B1 {launches['B1']}, B2 "
+        f"{launches['B2']}, the others {others}; "
+        f"fallback clusters to B2 {stats['fallback_clusters'] / n}/frame; "
+        f"pair_overflow {stats['pair_overflow']}, tile_overflow "
+        f"{stats['tile_overflow']}; covered pixels {covered:.3f}")
+    if launches["B1"] != 2 * n or launches["B2"] != n or others:
+        raise AssertionError(f"launches on the many_foxes path: {launches}")
+    if covered < 0.02:
+        raise AssertionError("full-size many_foxes frame drew (almost) "
+                             "nothing")
+    with Recorder() as rec:
+        app.update(dt=1 / 60)
+    torch.cuda.synchronize()
+    for kid in ("B1", "B2"):
+        errs = [compare(kid, a, kw) for a, kw in rec.calls[kid]]
+        log(f"{kid} vs plain, many_foxes full size: {len(errs)} calls "
+            f"bit-equal (max abs err {max(errs)})")
+    for a, kw in rec.calls["B1"]:
+        b1_cull_line("many_foxes full size", a, kw)
+        time_kernel("B1", a, kw, 2 * n, compare("B1", a, kw),
+                    where=f"in the many_foxes frame (win_h {kw['win_h']})")
+    a, kw = rec.calls["B2"][-1]
+    b2_cull_line("many_foxes full size", a, kw)
+    time_kernel("B2", a, kw, n, compare("B2", a, kw),
+                where="in the many_foxes frame")
+    log("many_foxes frame by span (torch.profiler, 10 frames):")
+    profile(app.frame_fn(), app.world.state, 10)
+    del app, rec
+    torch.cuda.empty_cache()
+
+    # -- 27: textured / normal-mapped / parallax and smooth worlds --------
+    mods = port_scene_modules()
+    for kind in ("atlas", "smooth"):
+        with Recorder() as rec:
+            img, _ = shade_record_world(mods, kind, {"device": dev}, {})
+        torch.cuda.synchronize()
+        cpu_img, _ = shade_record_world(mods, kind, {"device": "cpu"}, {})
+        d = np.abs(img - cpu_img).max(-1)
+        frac = float((d > 8).mean())
+        log(f"shade-record world {kind!r} on the card vs the CPU: "
+            f"{frac:.4%} of pixels drift > 8 (max channel diff {d.max()}, "
+            f"{int((d > 0).sum())} pixels differ)")
+        if frac >= 0.01:
+            raise AssertionError(f"shade-record world {kind!r} differs from "
+                                 f"the CPU frame")
+        for kid in ("B1", "B2"):
+            errs = [compare(kid, a, kw) for a, kw in rec.calls[kid]]
+            if not errs:
+                raise AssertionError(f"world {kind!r} never called {kid}")
+            log(f"{kid} vs plain, shade-record world {kind!r}: {len(errs)} "
+                f"calls bit-equal (max abs err {max(errs)})")
+
+
 def tri_phases(dev, n, smi, results):
     """Phases 20-24: B7 and B8 against plain on the CPU test scene, the
     cubes_f3 and shapes_f1 goldens through the general route, many_cubes
@@ -2409,6 +2514,8 @@ def main():
     sprite_phases(dev, n, smi, results)
 
     tri_phases(dev, n, smi, results)
+
+    fox_phases(dev, n, smi)
 
     log(f"chip_smoke.py ran {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [results[k] for k in KERNELS]}))

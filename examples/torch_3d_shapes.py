@@ -6,8 +6,9 @@ The scene holds six smooth-shaded meshes and a floor plane, so it takes
 the mesh pass's general route (`Mesh3dPlugin(backend="xla")`, the route
 JAX's "auto" takes for it on a CPU or GPU): per-vertex gathers, near-plane
 clip, triangle setup, tile binning and the per-tile triangle raster B7,
-eagerly on the device given to `build_app`. The group route refuses
-smooth meshes (ROADMAP A5).
+eagerly on the device given to `build_app`. `backend="auto"` draws the
+same scene on the group route (smooth meshes on the shade records, B1
+and B2).
 
     python examples/torch_3d_shapes.py               # 1280x720, ms/frame
     python examples/torch_3d_shapes.py --profile 10  # + per-span device time

@@ -113,7 +113,7 @@ def build_app(n_cubes=160_000, width=1280, height=720, capacity=None,
     return app
 
 
-SPANS = ("system:", "mesh:", "lights:", "sprite:")   # profiler spans
+SPANS = ("system:", "mesh:", "lights:", "sprite:", "skin:")  # profiler spans
 
 
 def profile(step, state, frames):

@@ -217,6 +217,139 @@ def test_pack_flat_shade_and_resolve_flat(far):
                                      jnp.asarray(color))))
 
 
+def _srec_inputs(far, tint=False):
+    """Per-triangle shade-record inputs over the far scene, every optional
+    part present (seeded): materials (15 columns, 18 with tint), corner
+    UVs past [0, 1] (the REPEAT wrap), base-colour / normal-map / lightmap
+    / depth-map / channel rects in a 64 x 64 atlas (a quarter of each kind
+    absent: u1 <= u0), unit tangents, parallax scales on half."""
+    rng = np.random.RandomState(7)
+    lead = (40, CS)
+    mat = rng.uniform(0.05, 1.0, lead + (18 if tint else 15,)) \
+        .astype(np.float32)
+    mat[..., 13] = np.where(rng.uniform(size=lead) < 0.5, 0.0,
+                            rng.uniform(0.02, 0.1, lead))
+    cuv = rng.uniform(-1.0, 2.0, lead + (3, 2)).astype(np.float32)
+    tan = rng.normal(size=lead + (3,)).astype(np.float32)
+    tan /= np.linalg.norm(tan, axis=-1, keepdims=True)
+
+    def rects():
+        lo = rng.uniform(0.0, 0.6, lead + (2,))
+        hi = lo + rng.uniform(0.1, 0.4, lead + (2,))
+        r = np.concatenate([lo, hi], -1).astype(np.float32)
+        r[rng.uniform(size=lead) < 0.25] = 0.0
+        return r
+
+    parts = dict(cuv=cuv, tex_rect=rects(), tangents=tan, nm_rect=rects(),
+                 lm_rect=rects(), dm_rect=rects(), em_rect=rects(),
+                 mr_rect=rects(), oc_rect=rects())
+    return mat, parts
+
+
+@pytest.mark.parametrize("parts", ["all", "tint", "bare"])
+def test_pack_planes_h_shade_records(far, parts):
+    """pack_planes_h(build_srec=True) against JAX: rtol / atol 1e-5 on the
+    valid triangles' records (the JAX records of culled triangles carry
+    their material too; both zero their planes)."""
+    mat, kw = _srec_inputs(far, tint=parts == "tint")
+    if parts == "bare":
+        mat, kw = None, {}
+    ok = np.ones((40, CS), bool)
+    jz, js, jv = jvis.pack_planes_h(
+        jnp.asarray(far["cc"]), jnp.asarray(far["cn"]), jnp.asarray(ok), W,
+        H, materials=None if mat is None else jnp.asarray(mat),
+        **{k: jnp.asarray(v) for k, v in kw.items()})
+    tz, ts, tv = tvis.pack_planes_h(
+        T(far["cc"]), T(far["cn"]), T(ok), W, H, build_srec=True,
+        materials=None if mat is None else T(mat),
+        **{k: T(v) for k, v in kw.items()})
+    v = N(jv)
+    assert np.array_equal(N(tv), v) and v.any()
+    assert ts.shape[-1] == (67 if parts == "tint" else tvis.SREC)
+    np.testing.assert_allclose(N(ts)[v], N(js)[v], rtol=1e-5, atol=1e-5)
+    _close(tz, jz)
+
+
+def _visbuf_winners(zrec):
+    """(H, W) int32 winner ids of flat (T, ZREC) records: at each pixel
+    centre the triangle inside its three edges with the greatest depth
+    (numpy, independent of both rasters; -1 = none)."""
+    px = np.arange(W, dtype=np.float32)[None, :, None] + 0.5
+    py = np.arange(H, dtype=np.float32)[:, None, None] + 0.5
+    z = np.asarray(zrec)
+    inside = np.ones((H, W, len(z)), bool)
+    for k in range(3):
+        inside &= z[:, 3 * k] * px + z[:, 3 * k + 1] * py + \
+            z[:, 3 * k + 2] <= 0
+    inside &= z[:, 12] >= 0
+    depth = np.where(inside, z[:, 9] * px + z[:, 10] * py + z[:, 11], -1.0)
+    win = np.argmax(depth, -1).astype(np.int32)
+    return np.where(depth.max(-1) > 0, win, -1)
+
+
+@pytest.fixture(scope="module")
+def shaded(far):
+    """The far scene's shade records (all parts, JAX-packed), its winners,
+    a seeded 64 x 64 atlas with a smooth depth channel, and a camera's
+    pixel-ray planes."""
+    mat, kw = _srec_inputs(far)
+    zrec, srec, _ = jvis.pack_planes_h(
+        jnp.asarray(far["cc"]), jnp.asarray(far["cn"]),
+        jnp.ones((40, CS), bool), W, H, materials=jnp.asarray(mat),
+        **{k: jnp.asarray(v) for k, v in kw.items()})
+    rng = np.random.RandomState(8)
+    atlas = rng.uniform(0.0, 1.0, (64, 64, 4)).astype(np.float32)
+    yy, xx = np.mgrid[0:64, 0:64] / 64.0
+    atlas[..., 0] = 0.5 + 0.4 * np.sin(6.0 * xx) * np.cos(4.0 * yy)
+    tf = np.tan(0.45)
+    ta = tf * W / H
+    ray = np.asarray([[-ta, tf, -1.0], [2 * ta / W, 0, 0],
+                      [0, -2 * tf / H, 0]], np.float32)
+    srec = np.asarray(srec).reshape(-1, tvis.SREC)
+    winner = _visbuf_winners(np.asarray(zrec).reshape(-1, tvis.ZREC))
+    assert (winner >= 0).mean() > 0.02          # the scene drew something
+    return dict(srec=srec, winner=winner, atlas=atlas, ray=ray)
+
+
+def test_sample_atlas(shaded):
+    uv = np.random.RandomState(9).uniform(-0.2, 1.2, (500, 2)) \
+        .astype(np.float32)
+    _close(tvis.sample_atlas(T(shaded["atlas"]), T(uv)),
+           jvis.sample_atlas(jnp.asarray(shaded["atlas"]), jnp.asarray(uv)))
+
+
+@pytest.mark.parametrize("layers", [0, 8])
+@pytest.mark.parametrize("fn", ["shade", "forward", "gbuf"])
+def test_shade_record_resolves(shaded, fn, layers):
+    """resolve_shade / resolve_forward / resolve_gbuf with the atlas
+    (base colour, normal map, channel textures, lightmap) and, with
+    layers > 0, the parallax march, against JAX: atol 1e-4."""
+    win, srec, atlas, ray = (shaded[k] for k in ("winner", "srec", "atlas",
+                                                 "ray"))
+    jargs = (jnp.asarray(win), jnp.asarray(srec))
+    targs = (T(win), T(srec))
+    jkw = dict(atlas=jnp.asarray(atlas), ray=jnp.asarray(ray),
+               parallax_layers=layers)
+    tkw = dict(atlas=T(atlas), ray=T(ray), parallax_layers=layers)
+    rng = np.random.RandomState(10)
+    if fn == "shade":
+        j = jvis.resolve_shade(*jargs, **jkw)
+        t = tvis.resolve_shade(*targs, **tkw)
+        assert np.array_equal(N(j[2]), N(t[2]))
+        pairs = list(zip(j[:2], t[:2]))
+    elif fn == "forward":
+        color = rng.uniform(0, 1, (4, H, W)).astype(np.float32)
+        pairs = [(jvis.resolve_forward(*jargs, jnp.asarray(LIGHT),
+                                       jnp.asarray(color), **jkw),
+                  tvis.resolve_forward(*targs, T(LIGHT), T(color), **tkw))]
+    else:
+        gbuf = rng.uniform(0, 1, (19, H, W)).astype(np.float32)
+        pairs = [(jvis.resolve_gbuf(*jargs, jnp.asarray(gbuf), **jkw),
+                  tvis.resolve_gbuf(*targs, T(gbuf), **tkw))]
+    for a, b in pairs:
+        np.testing.assert_allclose(N(b), N(a), rtol=0, atol=1e-4)
+
+
 def _compare_visbuf(jd, jw, td, tw):
     jd, jw, td, tw = N(jd), N(jw), N(td), N(tw)
     np.testing.assert_allclose(td, jd, rtol=1e-5, atol=1e-6)

@@ -511,7 +511,7 @@ def test_no_lights_leaves_ambient_only():
 
 
 def test_deferred_plugin_refuses_unported_features():
-    """Specular tint (A4b) and anisotropy (A5) in the plugin raise instead
+    """Specular tint and anisotropy (both A4b) in the plugin raise instead
     of rendering something else; sharded shading (ported) over more CUDA
     cards than exist raises instead of falling back to fewer or the CPU."""
     import torch_many_lights
@@ -521,7 +521,7 @@ def test_deferred_plugin_refuses_unported_features():
     with pytest.raises(ValueError, match="devices"):
         DeferredLightingPlugin(shards=torch.cuda.device_count() + 1)
     for values, item in (({"specular_tint": (1.0, 0.5, 0.5)}, "A4b"),
-                         ({"anisotropy_strength": 0.5}, "A5")):
+                         ({"anisotropy_strength": 0.5}, "A4b")):
         app = torch_many_lights.build_app(device="cpu", n_lights=4,
                                           n_cubes=1, width=128, height=64,
                                           capacity=16)

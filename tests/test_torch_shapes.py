@@ -166,10 +166,17 @@ def test_general_route_refusals():
         tm3d.Mesh3dPlugin(backend="cuda")
     with pytest.raises(ValueError, match="group route"):
         tm3d.Mesh3dPlugin(backend="xla", shards=2)
-    # the group route still refuses smooth meshes, naming its route
+    # the group route draws smooth meshes (on the shade records) and still
+    # refuses anisotropy, naming its route
     import torch_3d_shapes
+    from bevy_tpu_torch.transform import transform_bundle
     app = torch_3d_shapes.build_app(device="cpu", backend="auto", **app_kw)
-    with pytest.raises(NotImplementedError, match="group route.*A5"):
+    app.update(dt=1 / 60)
+    assert (app.world.state["res"]["render_target"]["depth"] > 0).any()
+    app.world.spawn(tm3d.Mesh3d(mesh=0),
+                    tm3d.MeshMaterial(anisotropy_strength=0.5),
+                    *transform_bundle())
+    with pytest.raises(NotImplementedError, match="group route.*A4b"):
         app.update(dt=1 / 60)
 
 

@@ -1,7 +1,8 @@
 """Inputs shared by the port's CPU tests and chip_smoke.py: the sprite
 scenes, the scenes that stress the culls of kernels B1 (window-splat
 raster) and B5 (window-splat sprite raster), and the two slivers of the
-B7 / B8 scene (SLIVER_CORNERS, with_slivers). Each builds its tensors
+B7 / B8 scene (SLIVER_CORNERS, with_slivers), and the group-route
+worlds on the shade records (shade_record_world). Each builds its tensors
 from a seed with numpy and moves them to the `device` it is given."""
 
 import numpy as np
@@ -249,3 +250,99 @@ def b2_scenes(device):
     cc[..., 3] = wc
     out["straddlers"] = call(torch.from_numpy(cc), 12, h, w, 32, 96, 1)
     return out
+
+
+# the modules shade_record_world builds with, by key: the package's name
+# followed by these suffixes (the JAX package and the port share them)
+SCENE_MODULES = {
+    "root": "", "render": ".render", "cam": ".render.camera",
+    "mesh": ".render.mesh", "m3": ".render.mesh3d",
+    "plug": ".render.plugin", "tex": ".render.texture", "time": ".time",
+    "tf": ".transform"}
+
+
+def port_scene_modules():
+    """SCENE_MODULES of bevy_tpu_torch, imported."""
+    import importlib
+    return {k: importlib.import_module(f"bevy_tpu_torch{v}")
+            for k, v in SCENE_MODULES.items()}
+
+
+def shade_record_world(m, kind, app_kw, plugin_kw):
+    """One frame of a group-route world on the shade-record path, built
+    with the modules `m` (SCENE_MODULES of either package, imported by the
+    caller); app_kw go to App (the port's device), plugin_kw to
+    Mesh3dPlugin (JAX's backend). Returns (sRGB image (H, W, 4) int, app).
+
+    "atlas": five smooth spheres of one mesh (one uniform batch) with the
+    material atlas: the half-red / half-green texture of
+    tests/test_mesh_texture.py; the checkerboard over a step depth map of
+    tests/test_parallax.py (parallax occlusion, 8 layers); a normal map
+    (tests/test_normal_map.py) with emissive, metallic-roughness and
+    occlusion textures and a lightmap (tests/test_channel_textures.py,
+    test_lightmap.py) and a uv transform; two with no texture.
+    "smooth": no atlas; smooth spheres (the shade records without
+    textures) beside flat cubes (the flat records)."""
+    m3, tb = m["m3"], m["tf"].transform_bundle
+    app = m["root"].App(capacity=16, **app_kw)
+    atlas = None if kind == "smooth" else m["tex"].AtlasBuilder(256, 128)
+    plugin = m3.Mesh3dPlugin(atlas=atlas, parallax_layers=8, **plugin_kw)
+    turn = (-0.2, 0.35, 0.0, 0.915)
+    items = []                                # (mesh, material, transform)
+    if kind == "atlas":
+        img = np.zeros((32, 32, 4), np.float32)
+        img[:, :16] = (1.0, 0.05, 0.05, 1.0)
+        img[:, 16:] = (0.05, 1.0, 0.05, 1.0)
+        h = atlas.add(img, srgb=False)
+        tex = atlas.add(m["tex"].checkerboard(64, 8), srgb=False)
+        dm = np.zeros((64, 64, 4), np.float32)
+        dm[:, :32, 0] = 1.0
+        dmap = atlas.add(dm, srgb=False)
+        nm = np.zeros((16, 16, 4), np.uint8)
+        nm[:, :8] = (40, 128, 230, 255)
+        nm[:, 8:] = (215, 128, 230, 255)
+        nmh = atlas.add(nm, srgb=False)
+        rng = np.random.RandomState(6)
+        ch = {k: atlas.add(rng.uniform(0.2, 1, (8, 8, 4)).astype(
+            np.float32), srgb=False) for k in ("em", "mr", "oc", "lm")}
+        white = (1.0, 1.0, 1.0, 1.0)
+        sphere = plugin.add_mesh(m["mesh"].uv_sphere(0.5, 16, 8))
+        mats = [
+            dict(base_color=white, uv_min=h["uv_min"], uv_max=h["uv_max"]),
+            dict(base_color=white, uv_min=tex["uv_min"],
+                 uv_max=tex["uv_max"], dm_min=dmap["uv_min"],
+                 dm_max=dmap["uv_max"], parallax_depth_scale=0.12),
+            dict(base_color=(0.8, 0.7, 0.6, 1.0), emissive=(0.3, 0.1, 0.0),
+                 uv_min=tex["uv_min"], uv_max=tex["uv_max"],
+                 nm_min=nmh["uv_min"], nm_max=nmh["uv_max"],
+                 uv_transform=(2.0, 0.3, -0.2, 1.5, 0.25, -0.1),
+                 perceptual_roughness=0.6, metallic=0.2,
+                 **{f"{k}_{e}": hh[f"uv_{e}"] for k, hh in ch.items()
+                    for e in ("min", "max")}),
+            dict(base_color=(0.3, 0.6, 0.9, 1.0)),
+            dict(base_color=(0.9, 0.8, 0.2, 1.0), emissive=(0.1, 0.0, 0.1)),
+        ]
+        for i, kw in enumerate(mats):
+            items.append((sphere, kw, dict(
+                translation=(-1.2 + 0.6 * i, 0.25 * (i % 2), -0.6 * (i % 3)),
+                rotation=turn, scale=(0.9, 0.9, 0.9))))
+    else:
+        sphere = plugin.add_mesh(m["mesh"].uv_sphere(0.5, 16, 8))
+        cube = plugin.add_mesh(m["mesh"].cuboid(1.0, 1.0, 1.0))
+        for i, x in enumerate((-0.9, -0.3, 0.3, 0.9)):
+            items.append((cube if i % 2 else sphere,
+                          dict(base_color=(0.9, 0.5 + 0.1 * i, 0.3, 1.0),
+                               emissive=(0.0, 0.0, 0.05 * i)),
+                          dict(translation=(x, 0.1 * i, -0.4 * i),
+                               rotation=turn, scale=(0.7, 0.7, 0.7))))
+    app.add_plugins(m["time"].TimePlugin(), m["tf"].TransformPlugin(),
+                    m["render"].RenderPlugin(width=160, height=96), plugin)
+    app.insert_resource(m3.AmbientLight(brightness=0.35))
+    app.world.spawn(m["cam"].Camera3d(), *tb(translation=(0, 0.6, 2.6),
+                                             rotation=(-0.1, 0, 0, 0.995)))
+    app.world.spawn(m3.DirectionalLight(illuminance=2.0),
+                    *tb(rotation=(-0.5, 0.2, 0.0, 0.84)))
+    for mid, kw, t in items:
+        app.world.spawn(m3.Mesh3d(mesh=mid), m3.MeshMaterial(**kw), *tb(**t))
+    app.update(dt=1 / 60)
+    return m["plug"].frame_image(app).astype(int), app
