@@ -798,4 +798,6 @@ def resolve_gbuf(winner, srec, gbuf, atlas=None, ray=None,
     if mat.shape[-1] >= 20:
         gparts.append(mat[..., 17:20])                     # tint 19:22
     planes = torch.cat(gparts, -1)[..., :gbuf.shape[0]].permute(2, 0, 1)
-    return torch.where(ok[None], planes, gbuf)
+    # contiguous (P, H, W), as B3 takes it: torch.where may keep the
+    # permuted planes' strides
+    return torch.where(ok[None], planes, gbuf).contiguous()

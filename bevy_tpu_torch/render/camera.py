@@ -9,10 +9,21 @@ transform flips y exactly once.
 
 from __future__ import annotations
 
+from functools import lru_cache
+
 import torch
 
 from bevy_tpu_torch.ecs.component import component, field
 from bevy_tpu_torch.math.affine import TRS, trs_inverse, trs_to_mat4
+
+
+@lru_cache(maxsize=None)
+def consts(device):
+    """Constant vectors on `device`, made once (no per-frame copies): the
+    unit axes x, y and -z (a light's forward) and unit scale."""
+    ax = torch.tensor([[1.0, 0.0, 0.0], [0.0, 1.0, 0.0], [0.0, 0.0, -1.0],
+                       [1.0, 1.0, 1.0]], device=device)
+    return {"x": ax[0], "y": ax[1], "-z": ax[2], "ones": ax[3]}
 
 
 def pick_camera(mask):
@@ -91,3 +102,18 @@ def view_matrix(cam_translation, cam_rotation, cam_scale):
     return trs_to_mat4(trs_inverse(TRS(translation=cam_translation,
                                        rotation=cam_rotation,
                                        scale=cam_scale)))
+
+
+def pixel_world(inv_vp, depth, width, height):
+    """World positions (H, W, 3) of the pixel centres at reverse-z `depth`
+    (H, W) under the inverse view projection `inv_vp` (4,4)."""
+    dev = depth.device
+    ys = (torch.arange(height, dtype=torch.float32, device=dev) + 0.5)[:, None]
+    xs = (torch.arange(width, dtype=torch.float32, device=dev) + 0.5)[None, :]
+    ndc = torch.stack([(2.0 * xs / width - 1.0).expand(depth.shape),
+                       (1.0 - 2.0 * ys / height).expand(depth.shape), depth,
+                       torch.ones_like(depth)], -1)
+    wh = torch.einsum("ij,hwj->hwi", inv_vp, ndc)
+    ww = wh[..., 3:4]
+    return wh[..., :3] / torch.where(torch.abs(ww) > 1e-9, ww,
+                                     torch.ones_like(ww))

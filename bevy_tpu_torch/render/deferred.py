@@ -9,23 +9,26 @@ this plugin bins the lights into the raster's screen tiles (ops/shade.py
 `bin_lights`) and resolves lighting in one kernel (B3, ops/shade.py
 `deferred_shade`).
 
-The kernel variant (spot cones, rect lights, clearcoat, reflectance) and
-the light record width (8, 16 or 24 fields) are chosen by a prepare hook
-from the host's view of the world (structural change only), so a frame
-reads nothing back from the device.
+The kernel variant (spot cones, rect lights, clearcoat, reflectance,
+anisotropy, specular tint), the light record width (8, 16 or 24 fields)
+and the G-buffer's plane count (19, or 22 with the tint planes 19:22 when
+a live material tints) are chosen by a prepare hook from the host's view
+of the world (structural change only), so a frame reads nothing back
+from the device.
+
+With a ShadowPlugin (render/shadow.py) the shade reconstructs each
+pixel's world position, turns the cascade maps into a lit factor
+(`shadow_factor`, span shadow:factor) and hands it to B3 as its shadow
+plane. Shadow-casting point and spot lights (`shadows=1`) leave the
+binned shade: render/point_shadow.py and render/spot_shadow.py shade the
+first of each.
 
 With `shards` the shade runs in row bands over a ShardMesh
 (parallel/raster.py `sharded_deferred_shade`), the lights binned over the
-grid padded to whole bands.
-
-Not ported, each raising NotImplementedError that names its ROADMAP item:
-the directional shadow map (A8), specular tint (A4b) and anisotropy (A4b)
-in the plugin; the kernel itself implements every variant.
+grid padded to whole bands, the shadow plane cut into the same bands.
 """
 
 from __future__ import annotations
-
-from functools import lru_cache
 
 import numpy as np
 import torch
@@ -41,15 +44,17 @@ from bevy_tpu_torch.ops.shade import bin_lights, deferred_shade
 from bevy_tpu_torch.parallel import as_mesh
 from bevy_tpu_torch.parallel import raster as par_raster
 from bevy_tpu_torch.render.camera import (
-    Camera3d, perspective_infinite_reverse, pick_camera, view_matrix,
+    Camera3d, consts, perspective_infinite_reverse, pick_camera,
+    pixel_world, view_matrix,
 )
 from bevy_tpu_torch.render.mesh3d import (
-    AmbientLight, DirectionalLight, MeshMaterial, _unported,
+    AmbientLight, DirectionalLight, MeshMaterial,
 )
 from bevy_tpu_torch.render.plugin import (
     CLEAR_SET, SHADE_SET, ClearColor, RenderPlugin, RenderTarget,
     add_render_stats,
 )
+from bevy_tpu_torch.render.shadow import shadow_factor
 
 
 @component
@@ -58,7 +63,7 @@ class PointLight:
     color = field(3, default=(1.0, 1.0, 1.0))
     intensity = field((), default=1.0)
     range = field((), default=20.0)
-    shadows = field((), torch.int32)  # 1 = shadow-casting (not ported, A8)
+    shadows = field((), torch.int32)  # 1 = shadow-casting (PointShadowPlugin)
 
 
 @component
@@ -70,7 +75,7 @@ class SpotLight:
     range = field((), default=20.0)
     inner_angle = field((), default=0.3)
     outer_angle = field((), default=0.5)
-    shadows = field((), torch.int32)
+    shadows = field((), torch.int32)  # 1 = shadow-casting (SpotShadowPlugin)
 
 
 @component
@@ -90,12 +95,13 @@ def clear_gbuffer(target=ResMut(RenderTarget.RESOURCE)):
     target.gbuffer = torch.zeros_like(target.gbuffer)
 
 
-@lru_cache(maxsize=None)
-def _axes(device):
-    """Constant unit axes on `device`, made once (no per-frame copies)."""
-    ax = torch.tensor([[1.0, 0.0, 0.0], [0.0, 1.0, 0.0], [0.0, 0.0, -1.0]],
-                      device=device)
-    return {"x": ax[0], "y": ax[1], "-z": ax[2]}
+def specular_tinted(tint):
+    """Whether any of the (n, 3) live specular_tint rows is not white: the
+    worlds whose G-buffer grows to 22 planes (the mesh pass writes the
+    tint into planes 19:22) and whose shade takes B3's tinted variant.
+    The JAX package reads every pool row and counts an all-zero tint as
+    unset; live rows need no such rule, so a black tint tints here."""
+    return bool(np.any(np.abs(tint - 1.0).max(-1) > 1e-6))
 
 
 def _material_flags(world):
@@ -103,10 +109,11 @@ def _material_flags(world):
     prepare time). Unlike the JAX twin, rows without a material do not
     count: its `reflectance` test sees their 0 and turns the variant on in
     every world with spare capacity (the image is the same: 0.16*0.5*0.5
-    rounds to exactly 0.04f)."""
+    rounds to exactly 0.04f); nor for the tint (specular_tinted)."""
     flags = dict(spot=world.component_rows(SpotLight) > 0,
                  rect=world.component_rows(RectLight) > 0,
-                 clearcoat=False, reflectance=False)
+                 clearcoat=False, anisotropy=False, reflectance=False,
+                 specular_tint=False)
     if get_spec(MeshMaterial).name not in world.specs:
         return flags
     rows = world.query_rows(MeshMaterial)
@@ -114,11 +121,8 @@ def _material_flags(world):
     def col(name):
         return world.column(MeshMaterial, name).cpu().numpy()[rows]
 
-    if np.any(col("anisotropy_strength") > 0.0):
-        raise _unported("anisotropy in the deferred plugin", "A4b")
-    tint = col("specular_tint")
-    if np.any(np.abs(tint - 1.0).max(-1) > 1e-6):
-        raise _unported("specular tint in the deferred plugin", "A4b")
+    flags["anisotropy"] = bool(np.any(col("anisotropy_strength") > 0.0))
+    flags["specular_tint"] = specular_tinted(col("specular_tint"))
     flags["clearcoat"] = bool(np.any(col("clearcoat") > 0.0))
     flags["reflectance"] = bool(np.any(np.abs(col("reflectance") - 0.5)
                                        > 1e-6))
@@ -151,7 +155,7 @@ def light_records(plight, slight, rlight, spot, rect):
     s_pos = slight.global_transform.translation
     s_rng = slight.spot_light.range
     s_col = slight.spot_light.color * slight.spot_light.intensity[:, None]
-    axes = _axes(dev)
+    axes = consts(dev)
     fwd = axes["-z"]
     s_dir = quat_rotate_vec3(slight.global_transform.rotation, fwd)
     cos_o = torch.cos(slight.spot_light.outer_angle)
@@ -251,9 +255,6 @@ def make_deferred_shade(width, height, plugin, device, tile_h=32,
                            target=ResMut(RenderTarget.RESOURCE),
                            stats=ResMut("render_stats")):
         flags = plugin._flags
-        if hasattr(target, "shadow_depth"):
-            raise _unported("the directional shadow map in the deferred "
-                            "plugin", "A8")
         with span("lights:bin"):
             ci, has_cam = pick_camera(cam.mask)
             cam_gt = cam.global_transform
@@ -281,25 +282,30 @@ def make_deferred_shade(width, height, plugin, device, tile_h=32,
                 pairs_per_light, max_lights_per_tile, records)
             di, has_dl = pick_camera(dlight.mask)
             ldir = quat_rotate_vec3(dlight.global_transform.rotation[di],
-                                    _axes(device)["-z"])
+                                    consts(device)["-z"])
             lcol = dlight.directional_light.color[di] * \
                 dlight.directional_light.illuminance[di] * has_dl
             params = torch.cat([
                 inv_vp.reshape(16), ldir, lcol, amb.color * amb.brightness,
                 size_pad[:2], clear.color, cam_gt.translation[ci],
                 size_pad[2:]])
-        variant = dict(spot=flags["spot"], rect=flags["rect"],
-                       clearcoat=flags["clearcoat"], anisotropy=False,
-                       reflectance=flags["reflectance"], specular_tint=False)
+        shadow = None
+        if hasattr(target, "shadow_depth"):
+            # the directional light's lit factor from the cascade maps
+            # (render/shadow.py), one map gather a pixel, as B3's plane
+            with span("shadow:factor"):
+                shadow = shadow_factor(
+                    pixel_world(inv_vp, target.depth, width, height),
+                    target.shadow_depth, target.shadow_vp)
         if shards is not None:
             target.color = par_raster.sharded_deferred_shade(
                 shards, target.gbuffer, target.depth, table, counts, params,
-                None, tile_h=tile_h, tile_w=tile_w, **variant)
+                shadow, tile_h=tile_h, tile_w=tile_w, **flags)
         else:
             with span("lights:shade_B3"):
                 target.color = deferred_shade(
-                    target.gbuffer, target.depth, table, counts, params, None,
-                    tile_h=tile_h, tile_w=tile_w, **variant)
+                    target.gbuffer, target.depth, table, counts, params,
+                    shadow, tile_h=tile_h, tile_w=tile_w, **flags)
         # as the reference: into the shared counters, and the port's own
         # light-only counters beside them
         lpo = lstats["light_pair_overflow"]
@@ -336,7 +342,8 @@ class DeferredLightingPlugin(Plugin):
         store = app.world.state["res"][RenderTarget.RESOURCE]
         # 19 planes: albedo rgba, normal, emissive, metallic, roughness,
         # clearcoat, ccr, anisotropy tangent + strength (14:18, zero on
-        # the flat path), reflectance (18)
+        # the flat path), reflectance (18); 22 with the specular tint
+        # (19:22) while a live material tints
         store["gbuffer"] = torch.zeros((19, rp.height, rp.width),
                                        device=app.device)
         add_render_stats(app, "pair_overflow", "tile_overflow",
@@ -345,6 +352,14 @@ class DeferredLightingPlugin(Plugin):
 
         def choose_variant(world):
             plugin._flags = _material_flags(world)
+            st = world.state["res"][RenderTarget.RESOURCE]
+            planes = 22 if plugin._flags["specular_tint"] else 19
+            if st["gbuffer"].shape[0] != planes:
+                # a structural change only when the plane count changes
+                # (the JAX twin bumps on every prepare of a tinted world)
+                st["gbuffer"] = torch.zeros((planes, rp.height, rp.width),
+                                            device=world.device)
+                world.structure_version += 1
 
         app.add_prepare_hook(choose_variant)
         app.add_systems(Render, clear_gbuffer, in_set=CLEAR_SET)

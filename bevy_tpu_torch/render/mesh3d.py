@@ -102,8 +102,10 @@ class MeshMaterial:
     same fields as the JAX package, so worlds convert column for column.
     The flat-forward path reads base_color, emissive, metallic and
     perceptual_roughness; the flat-deferred path also clearcoat,
-    clearcoat_roughness and reflectance. Both refuse worlds that set the
-    fields in _MATERIAL_GATES."""
+    clearcoat_roughness, reflectance and (into a 22-plane G-buffer)
+    specular_tint; the deferred shade records also the anisotropy fields
+    (flat meshes shade isotropic, as in the JAX package). Both refuse
+    worlds that set the fields in _MATERIAL_GATES."""
     base_color = field(4, default=(1.0, 1.0, 1.0, 1.0))
     emissive = field(3)
     metallic = field(())
@@ -172,9 +174,7 @@ def _unported(feature, item, route=None):
 _MATERIAL_GATES = (
     ("specular_transmission", 0.0, "transmission", "A8"),
     ("diffuse_transmission", 0.0, "transmission", "A8"),
-    ("anisotropy_strength", 0.0, "anisotropy", "A4b"),
     ("depth_bias", 0.0, "depth bias", "A8"),
-    ("specular_tint", (1.0, 1.0, 1.0), "specular tint", "A4b"),
 )
 # Atlas rect columns whose records are built only where a live row sets
 # them (the reference's trace-time gates), by the max corner's default
@@ -193,7 +193,7 @@ def _rebuild_expansion(world, plugin):
     renders as one uniform batch), refuses transparency and the
     _MATERIAL_GATES fields, and reads the live material rows once for
     the features a frame specialises on (parallax occlusion, uv
-    transforms, the channel textures)."""
+    transforms, the channel textures, anisotropy)."""
     route = plugin.route
     rows = world.query_rows(Mesh3d)
     cam_rows = world.query_rows(Camera3d)
@@ -213,7 +213,8 @@ def _rebuild_expansion(world, plugin):
             if len(ids) == 1 else None
         install_expansion(world, plugin.pool)
         return
-    names = ("base_color", "parallax_depth_scale", "uv_transform") + \
+    names = ("base_color", "parallax_depth_scale", "uv_transform",
+             "anisotropy_strength") + \
         tuple(g[0] for g in _MATERIAL_GATES) + \
         tuple(f"{c}_max" for _, c in _CHANNEL_RECTS)
     col = {name: world.column(MeshMaterial, name).cpu().numpy()[rows]
@@ -228,6 +229,7 @@ def _rebuild_expansion(world, plugin):
         pom=textured and bool(np.any(col["parallax_depth_scale"] > 0.0)),
         uvt=bool(np.any(col["uv_transform"] !=
                         np.asarray(_IDENTITY_UVT, np.float32))),
+        aniso=bool(np.any(col["anisotropy_strength"] > 0.0)),
         **{key: bool(np.any(col[f"{c}_max"] != 0.0))
            for key, c in _CHANNEL_RECTS})
     plugin._groups = []
@@ -235,7 +237,9 @@ def _rebuild_expansion(world, plugin):
         grows = rows[mesh_ids == mid].astype(np.int64)
         plugin._groups.append(dict(
             uniform_batch(plugin.pool.meshes[int(mid)], dev,
-                          textured=textured),
+                          textured=textured,
+                          tangents=plugin._spec["aniso"] and
+                          plugin.cfg["deferred"]),
             n=len(grows), rows=torch.as_tensor(grows, device=dev)))
 
 
@@ -303,7 +307,8 @@ def _uniform_tables(mesh, rows, device):
     }
 
 
-def uniform_batch(mesh, device, cs=12, rigid=True, textured=False):
+def uniform_batch(mesh, device, cs=12, rigid=True, textured=False,
+                  tangents=False):
     """Per-mesh constants of a uniform batch, on the device once per
     prepare (so a frame copies nothing from the host): homogeneous
     positions, normals, the triangle index table padded to whole clusters
@@ -312,7 +317,8 @@ def uniform_batch(mesh, device, cs=12, rigid=True, textured=False):
     and for `rigid` geometry the static coplanar quad pairing
     (single-cluster, mostly-quad meshes only; skinned meshes pass
     rigid=False). `textured` adds the corner UVs ("cuv", (TCP, 3, 2)) and
-    the mesh-space triangle tangents ("tan", (TCP, 3)), zero-padded."""
+    the mesh-space triangle tangents ("tan", (TCP, 3)), zero-padded;
+    `tangents` the tangents alone (anisotropy without an atlas)."""
     tc0 = mesh.num_triangles
     tcp = (tc0 + cs - 1) // cs * cs
     tris = np.zeros((tcp, 3), np.int64)
@@ -339,9 +345,10 @@ def uniform_batch(mesh, device, cs=12, rigid=True, textured=False):
     if textured:
         cuv = np.zeros((tcp, 3, 2), np.float32)
         cuv[:tc0] = mesh.uvs[mesh.triangles.astype(np.int64)]
+        out["cuv"] = torch.as_tensor(cuv, device=device)
+    if textured or tangents:
         tan = np.zeros((tcp, 3), np.float32)
         tan[:tc0] = mesh.tri_tangents()
-        out["cuv"] = torch.as_tensor(cuv, device=device)
         out["tan"] = torch.as_tensor(tan, device=device)
     return out
 
@@ -364,10 +371,10 @@ def raster_batched(clip, nrm, batch, inst_ok, mat_inst, light_vec,
                    target, stats, *, width, height, tile_h=16, tile_w=128,
                    max_per_tile=512, cluster_size=12, win_h=32,
                    window_budget=65536, eval_tris=None,
-                   visible_budget=65536, deferred=False, flat_ok=False,
-                   corner_uv=None, uvr_i=None, uvt_i=None, tan_i=None,
-                   nmr_i=None, lmr_i=None, dmr_i=None, emr_i=None,
-                   mrr_i=None, ocr_i=None, atlas=None, ray=None,
+                   visible_budget=65536, deferred=False, depth_only=False,
+                   flat_ok=False, corner_uv=None, uvr_i=None, uvt_i=None,
+                   tan_i=None, nmr_i=None, lmr_i=None, dmr_i=None,
+                   emr_i=None, mrr_i=None, ocr_i=None, atlas=None, ray=None,
                    parallax_layers=0):
     """Visibility-buffer raster of one uniform batch.
 
@@ -376,8 +383,14 @@ def raster_batched(clip, nrm, batch, inst_ok, mat_inst, light_vec,
     mat_inst (Ni, 9) [rgba, emissive, metallic, roughness], or (Ni, 15)
     with clearcoat, clearcoat roughness, anisotropy, anisotropy rotation,
     parallax depth scale and reflectance (always for the shade records or
-    `deferred`). Writes target.depth, and target.color (forward, composed
-    over the incoming color) or target.gbuffer (deferred).
+    `deferred`), or (Ni, 18) with the specular tint rgb. Writes
+    target.depth, and target.color (forward, composed over the incoming
+    color) or target.gbuffer (deferred).
+
+    `depth_only` (the shadow passes, render/shadow.py) writes target.depth
+    alone: the plane records only (no shade record, whatever the mesh's
+    normals or UVs), B1 and B2, no resolve; nrm, mat_inst and light_vec
+    may then be None.
 
     Two record paths, one raster (B1 for two window classes, then B2 for
     the fallback clusters):
@@ -395,14 +408,14 @@ def raster_batched(clip, nrm, batch, inst_ok, mat_inst, light_vec,
 
     Profiler spans (torch.profiler): mesh:setup, mesh:windows,
     mesh:splat_B1, mesh:fallback_bin, mesh:stream_B2, mesh:resolve."""
-    srec_in = None if flat_ok and corner_uv is None else dict(
-        corner_uv=corner_uv, uvr_i=uvr_i, uvt_i=uvt_i, tan_i=tan_i,
-        nmr_i=nmr_i, lmr_i=lmr_i, dmr_i=dmr_i, emr_i=emr_i, mrr_i=mrr_i,
-        ocr_i=ocr_i)
+    srec_in = None if depth_only or (flat_ok and corner_uv is None) \
+        else dict(corner_uv=corner_uv, uvr_i=uvr_i, uvt_i=uvt_i,
+                  tan_i=tan_i, nmr_i=nmr_i, lmr_i=lmr_i, dmr_i=dmr_i,
+                  emr_i=emr_i, mrr_i=mrr_i, ocr_i=ocr_i)
     with span("mesh:setup"):
         setup = _setup(clip, nrm, batch, inst_ok, mat_inst, light_vec,
                        width, height, cluster_size, eval_tris, visible_budget,
-                       deferred, srec_in)
+                       deferred, depth_only, srec_in)
     aabb, cl_valid, zmax, zrec, frec, rec_rows, nslots, nedge, k = setup
     cs = cluster_size
     dev = clip.device
@@ -459,6 +472,8 @@ def raster_batched(clip, nrm, batch, inst_ok, mat_inst, light_vec,
     stats.pair_overflow = stats.pair_overflow + st["pair_overflow"]
     stats.tile_overflow = stats.tile_overflow + st["tile_overflow"]
     target.depth = depth
+    if depth_only:
+        return
     with span("mesh:resolve"):
         win = winner.to(torch.int32)
         if srec_in is not None and deferred:
@@ -477,11 +492,11 @@ def raster_batched(clip, nrm, batch, inst_ok, mat_inst, light_vec,
 
 
 def _setup(clip, nrm, batch, inst_ok, mat_inst, light_vec, width, height,
-           cs, eval_tris, visible_budget, deferred, srec_in):
+           cs, eval_tris, visible_budget, deferred, depth_only, srec_in):
     """Corner extraction, cluster cull, clipless plane setup, the records
     the resolve gathers (flat shade, flat G-buffer or, with `srec_in`, the
-    shade records) and the window kernel's record rows of one uniform
-    batch."""
+    shade records; none when `depth_only`) and the window kernel's record
+    rows of one uniform batch."""
     dev = clip.device
     ni = clip.shape[0]
     tri_idx = batch["tris"]
@@ -494,7 +509,7 @@ def _setup(clip, nrm, batch, inst_ok, mat_inst, light_vec, width, height,
     # corner extraction: an index gather (bit-equal to the TPU's one-hot
     # matmul, whose every output is one product by 1.0)
     cc = clip[:, tri_idx].reshape(n_cl, cs, 3, 4)
-    cn = nrm[:, tri_idx].reshape(n_cl, cs, 3, 3)
+    cn = None if depth_only else nrm[:, tri_idx].reshape(n_cl, cs, 3, 3)
     cl_ok = inst_ok[:, None].expand(ni, cc_num).reshape(n_cl)
     aabb, cl_valid, zmax = cluster_screen_aabbs(
         cc, cl_ok, torch.ones(n_cl * cs, dtype=torch.bool, device=dev), cs,
@@ -508,9 +523,12 @@ def _setup(clip, nrm, batch, inst_ok, mat_inst, light_vec, width, height,
         return src[:, None, None, :].expand(ni, cc_num, cs, w_) \
             .reshape(n_cl, cs, w_)
 
-    mat_tri = per_inst(mat_inst)
+    mat_tri = None if depth_only else per_inst(mat_inst)
     tri_ok = cl_valid[:, None].expand(n_cl, cs)
-    if srec_in is not None:
+    frec = None
+    if depth_only:
+        zrec, _ = pack_planes_h(cc, cn, tri_ok, width, height)
+    elif srec_in is not None:
         zrec, frec, valid = pack_planes_h(
             cc, cn, tri_ok, width, height, build_srec=True,
             materials=mat_tri, **_srec_parts(srec_in, batch, per_inst, ni,
@@ -521,7 +539,8 @@ def _setup(clip, nrm, batch, inst_ok, mat_inst, light_vec, width, height,
             frec = pack_flat_gbuf(cn, mat_tri, valid)
         else:
             frec = pack_flat_shade(cn, mat_tri, light_vec, valid)
-    frec = frec.reshape(n_cl * cs, frec.shape[-1])
+    if frec is not None:
+        frec = frec.reshape(n_cl * cs, frec.shape[-1])
     ntri_f = cs if eval_tris is None else min(eval_tris, cs)
     quads = batch["quads"]
     if quads is not None:
@@ -939,6 +958,11 @@ def _group_pass(width, height, plugin, *, tile_h, tile_w, max_per_tile,
                     "clearcoat", "clearcoat_roughness", "anisotropy_strength",
                     "anisotropy_rotation", "parallax_depth_scale",
                     "reflectance")]
+                if deferred and target.gbuffer.shape[0] >= 22:
+                    # the tint planes 19:22, where DeferredLightingPlugin
+                    # made room for them (the forward resolve, as the JAX
+                    # package's, reads no tint)
+                    cols.append(mm.specular_tint[rows])
             if plugin.shard_mesh is not None and flat and not deferred:
                 # multi-device: the flat-forward group rasters sharded over
                 # instances (the padding instances are invalid)
@@ -973,6 +997,11 @@ def _group_pass(width, height, plugin, *, tile_h, tile_w, max_per_tile,
                     parallax_layers=parallax_layers if spec["pom"] else 0,
                     **{f"{key}_i": rect(c) if spec[key] else None
                        for key, c in _CHANNEL_RECTS})
+            elif deferred and spec["aniso"] and not grp["flat"]:
+                # anisotropy needs the tangent frame without textures too
+                # (the shade records carry it; flat meshes shade isotropic)
+                tex = dict(tan_i=quat_rotate_vec3(gt_r[:, None, :],
+                                                  grp["tan"][None]))
             raster_batched(
                 clip, nrm, grp, inst_ok, torch.cat(cols, 1), lv, target,
                 stats, width=width, height=height, tile_h=tile_h,

@@ -126,7 +126,29 @@ source, all started together), then:
    normal-mapped, parallax-occlusion, channel-textured, lightmapped and
    uv-transformed cubes; "smooth" — smooth spheres) on the card and on
    the CPU: the two images under the golden rule, B1 and B2 bit-equal to
-   plain on every call.
+   plain on every call;
+28. renders the shadow showcase (examples/torch_shadow_showcase.py) small
+   (160x96, 4 cascades, the spot map, 6 point faces, all 256^2, a 4 x 4
+   grid, casters across the spot's and the point light's near planes) on
+   the card and on the CPU: the two images under the golden rule, B1 and
+   B2 bit-equal to plain on every call, B3 (the shadow plane, the
+   anisotropic and tinted variant) within rtol/atol 1e-5;
+29. runs the full-size shadow world (1280x720, a 100 x 100 grid of cube
+   casters, 4 x 2048^2 cascades, a 1024^2 spot map, 6 x 1024^2 point
+   faces: 11 depth-only passes and the G-buffer pass a frame over two
+   mesh groups), times 20 frames with CUDA events, checks 48 B1, 24 B2
+   and 1 B3 launches a frame and no other kernel, that pair_overflow,
+   tile_overflow and light_pair_overflow are 0, and holds every B1 and B2
+   call of one frame (every map) against plain, bit for bit;
+30. times B1 and B2 (each one's busiest call on a 2048^2 cascade and on
+   a 1024^2 spot / point map) against plain and their bounds, with their
+   cull counts, and B3
+   with the shadow plane and the tint + anisotropy variant, profiles
+   10 frames by span (shadow:*, mesh:*, lights:*), then moves the two
+   near-plane casters out of the lights' views and checks that the
+   1024^2 B2 calls list fewer (tile, cluster) entries without them: the
+   straddlers reach B2 inside the spot and point passes, in calls held
+   bit-equal in phase 29.
 
 The shards of phases 15-19 all sit on the one card (a ShardMesh may repeat
 a device): their work runs one shard after another.
@@ -2112,6 +2134,175 @@ def fox_phases(dev, n, smi):
                 f"calls bit-equal (max abs err {max(errs)})")
 
 
+SHADOW_SMALL = dict(width=160, height=96, size=256, cascades=4,
+                    extent=48.0, distance=80.0, spot_size=256, point=True,
+                    point_size=256, grid=4, near_casters=True)
+SHADOW_FULL = dict(width=1280, height=720, size=2048, cascades=4,
+                   extent=48.0, distance=80.0, spot_size=1024, point=True,
+                   point_size=1024, grid=100, near_casters=True)
+
+
+def near_caster_entries(app, calls, shape):
+    """The near-plane straddlers' share of B2 in the shadow passes: the
+    (tile, cluster) entries that the B2 calls at `shape` (the spot map and
+    the point faces) list in the recorded `calls` of one frame, and in
+    one more frame with the straddlers (the 4 cm cubes of the showcase's
+    near_casters) moved 500 m above the scene, out of the spot's view and
+    the point light's near planes (a data change: the same groups).
+    Returns (entries, entries without them, number moved)."""
+    from bevy_tpu_torch.render.mesh3d import Mesh3d
+    from bevy_tpu_torch.transform import Transform, transform_bundle
+
+    def entries(rec_calls):
+        return sum(int(a[4].sum()) for a, _ in rec_calls
+                   if tuple(a[0].shape) == shape)
+
+    rows = app.world.query_rows(Mesh3d)
+    scale = app.world.column(Transform, "scale").cpu().numpy()[rows, 0]
+    near = rows[np.isclose(scale, 0.04)]
+    for r in near:
+        app.world.insert(int(r), *transform_bundle(
+            translation=(0.0, 500.0, 0.0), scale=(0.04, 0.04, 0.04)))
+    with Recorder() as rec:
+        app.update(dt=1 / 60)
+    torch.cuda.synchronize()
+    return entries(calls), entries(rec.calls["B2"]), len(near)
+
+
+def shadow_phases(dev, n, smi):
+    """Phases 28-30: the shadow showcase (cascaded directional, spot and
+    point shadow maps on B1/B2, the shadow plane, specular tint and
+    anisotropy into B3)."""
+    import torch_shadow_showcase
+    from torch_many_cubes import profile
+    from bevy_tpu_torch.render import frame_image
+
+    def by_map(calls):
+        """Recorded calls by their depth buffer's shape: the directional
+        cascades (2048^2 / 256^2), the spot map and point faces, the
+        frame."""
+        out = {}
+        for a, kw in calls:
+            out.setdefault(tuple(a[0].shape), []).append((a, kw))
+        return out
+
+    # -- 28: the small showcase frame, the card against the CPU -----------
+    with Recorder() as rec:
+        app = torch_shadow_showcase.build_app(device=dev, **SHADOW_SMALL)
+        app.update(dt=1 / 60)
+    torch.cuda.synchronize()
+    img = frame_image(app)
+    cpu = torch_shadow_showcase.build_app(device="cpu", **SHADOW_SMALL)
+    cpu.update(dt=1 / 60)
+    d = np.abs(img.astype(int) - frame_image(cpu).astype(int)).max(-1)
+    frac = float((d > 8).mean())
+    log(f"shadow showcase 160x96 (maps 256, 4 cascades, spot, point, 4x4 "
+        f"grid) on the card vs the CPU: {frac:.4%} of pixels drift > 8 "
+        f"(max channel diff {d.max()}, {int((d > 0).sum())} pixels differ)")
+    if frac >= 0.01:
+        raise AssertionError("the small shadow frame differs from the CPU's")
+    for kid in ("B1", "B2"):
+        errs = [compare(kid, a, kw) for a, kw in rec.calls[kid]]
+        log(f"{kid} vs plain, small shadow frame: {len(errs)} calls "
+            f"bit-equal (max abs err {max(errs)})")
+    for a, kw in rec.calls["B3"]:
+        err = compare("B3", a, kw)
+        log(f"B3 vs plain, small shadow frame (shadow plane, anisotropy "
+            f"{kw['anisotropy']}, specular tint {kw['specular_tint']}): "
+            f"within rtol/atol 1e-5 (max abs err {err[0]}, max rel err "
+            f"{err[1]}, {err[2]} values differ)")
+    check_stats(app.world.state, ("pair_overflow", "tile_overflow"))
+    del app, cpu, rec
+
+    # -- 29: the full-size shadow world -----------------------------------
+    app = torch_shadow_showcase.build_app(device=dev, **SHADOW_FULL)
+    ms, launches, stats, covered = timed_frames(app, n)
+    per = {k: launches[k] / n for k in ("B1", "B2", "B3")}
+    others = sum(v for k, v in launches.items() if k not in per)
+    log(f"shadow showcase @1280x720 (10,000 grid casters, 4 x 2048^2 "
+        f"cascades, a 1024^2 spot map, 6 x 1024^2 point faces): {ms:.3f} "
+        f"ms/frame over {n} frames (CUDA events; {smi})")
+    log(f"launches a frame ({smi}): B1 {per['B1']}, B2 {per['B2']}, B3 "
+        f"{per['B3']}, the others {others}; fallback clusters to B2 "
+        f"{stats['fallback_clusters'] / n}/frame; pair_overflow "
+        f"{stats['pair_overflow']}, tile_overflow {stats['tile_overflow']}, "
+        f"light_pair_overflow {stats['light_pair_overflow']}; covered "
+        f"pixels {covered:.3f}")
+    # 12 passes (11 depth-only + the G-buffer) x 2 mesh groups
+    if per != {"B1": 48.0, "B2": 24.0, "B3": 1.0} or others:
+        raise AssertionError(f"launches on the shadow path: {launches}")
+    check_stats(app.world.state, ("pair_overflow", "tile_overflow",
+                                  "light_pair_overflow"))
+    if covered < 0.5:
+        raise AssertionError("the full-size shadow frame drew too little")
+    with Recorder() as rec:
+        app.update(dt=1 / 60)
+    torch.cuda.synchronize()
+    for kid in ("B1", "B2"):
+        for shape, calls in sorted(by_map(rec.calls[kid]).items()):
+            errs = [compare(kid, a, kw) for a, kw in calls]
+            lists = "" if kid == "B1" else \
+                f", (tile, cluster) entries {[int(a[4].sum()) for a, _ in calls]}"
+            log(f"{kid} vs plain, shadow frame, {shape[0]}x{shape[1]}: "
+                f"{len(errs)} calls bit-equal (max abs err {max(errs)})"
+                f"{lists}")
+    state = app.world.state["res"]["render_target"]
+    maps_ok = all(bool(torch.isfinite(state[k]).all()) and
+                  bool((state[k] > 0).any())
+                  for k in ("shadow_depth", "spot_shadow_depth",
+                            "point_shadow_depth"))
+    if not maps_ok:
+        raise AssertionError("a shadow map is empty or not finite")
+    log(f"maps: shadow_depth {tuple(state['shadow_depth'].shape)}, "
+        f"spot {tuple(state['spot_shadow_depth'].shape)}, point "
+        f"{tuple(state['point_shadow_depth'].shape)}; covered "
+        + ", ".join(f"{k} {float((state[k] > 0).float().mean()):.3f}"
+                    for k in ("shadow_depth", "spot_shadow_depth",
+                              "point_shadow_depth")))
+    # -- 30: B1, B2, B3 at the shadow frame's shapes ----------------------
+    # each kernel's busiest call (most valid windows / listed clusters) on
+    # a 2048^2 cascade and on a 1024^2 spot / point map
+    work = {"B1": lambda c: int(c[0][5].sum()),
+            "B2": lambda c: int(c[0][4].sum())}
+    for kid, cull_line in (("B1", b1_cull_line), ("B2", b2_cull_line)):
+        maps = by_map(rec.calls[kid])
+        for shape in ((2048, 2048), (1024, 1024)):
+            a, kw = max(maps[shape], key=work[kid])
+            where = (f"in the shadow frame's busiest {shape[0]}^2 map call "
+                     f"({work[kid]((a, kw))} "
+                     + ("windows" if kid == "B1" else "(tile, cluster) "
+                        "entries") + f"; {smi})")
+            cull_line(f"shadow frame, busiest {shape[0]}^2 map", a, kw)
+            time_kernel(kid, a, kw, launches[kid], compare(kid, a, kw),
+                        where=where)
+    a, kw = rec.calls["B3"][-1]
+    if a[5] is None or not (kw["anisotropy"] and kw["specular_tint"]):
+        raise AssertionError(f"the shadow frame's B3 call lacked the "
+                             f"shadow plane or a variant: {kw}")
+    err = compare("B3", a, kw)
+    log(f"B3 vs plain, shadow frame (shadow plane + anisotropy + specular "
+        f"tint, {a[0].shape[0]} planes): within rtol/atol 1e-5 (max abs "
+        f"err {err[0]}, max rel err {err[1]}, {err[2]} values differ)")
+    time_kernel("B3", a, kw, launches["B3"], err[0],
+                where=f"in the shadow frame (shadow plane, anisotropy, "
+                      f"specular tint; {smi})")
+    log("shadow frame by span (torch.profiler, 10 frames):")
+    profile(app.frame_fn(), app.world.state, 10)
+    # the straddlers reach B2 inside the spot and point passes: the 1024^2
+    # B2 calls list more entries with them than without (their calls are
+    # held bit-equal above)
+    with_near, without, moved = near_caster_entries(app, rec.calls["B2"],
+                                                    (1024, 1024))
+    log(f"near-plane casters in the 1024^2 shadow passes: {moved} moved "
+        f"out, B2 (tile, cluster) entries {with_near} with them, {without} "
+        f"without")
+    if moved != 2 or not with_near > without:
+        raise AssertionError("the near-plane casters never reached B2 in a "
+                             "spot or point shadow pass")
+    del app, rec
+    torch.cuda.empty_cache()
+
+
 def tri_phases(dev, n, smi, results):
     """Phases 20-24: B7 and B8 against plain on the CPU test scene, the
     cubes_f3 and shapes_f1 goldens through the general route, many_cubes
@@ -2516,6 +2707,8 @@ def main():
     tri_phases(dev, n, smi, results)
 
     fox_phases(dev, n, smi)
+
+    shadow_phases(dev, n, smi)
 
     log(f"chip_smoke.py ran {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [results[k] for k in KERNELS]}))

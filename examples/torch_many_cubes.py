@@ -113,15 +113,19 @@ def build_app(n_cubes=160_000, width=1280, height=720, capacity=None,
     return app
 
 
-SPANS = ("system:", "mesh:", "lights:", "sprite:", "skin:")  # profiler spans
+SPANS = ("system:", "mesh:", "lights:", "sprite:", "skin:",
+         "shadow:")                                      # profiler spans
+OUTER = ("shadow:",)       # spans also summed over every kernel inside
 
 
 def profile(step, state, frames):
     """torch.profiler over `frames` frames. Prints the device busy share
     of the window (kernel time / CUDA-event wall time), kernel time per
-    span (system:*, mesh:*, lights:*, sprite:* — each kernel counts toward the
-    innermost span whose GPU-side range holds it, so the ctypes-launched
-    CUDA kernels are attributed too) and the top kernels."""
+    span (system:*, mesh:*, lights:*, sprite:*, skin:*, shadow:* — each
+    kernel counts toward the innermost span whose GPU-side range holds it,
+    so the ctypes-launched CUDA kernels are attributed too), the shadow:*
+    spans again with every kernel inside them (their mesh:* spans too),
+    and the top kernels."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
@@ -138,7 +142,7 @@ def profile(step, state, frames):
     gpu = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     spans = [e for e in gpu if e.name.startswith(SPANS)]
     kernels = [e for e in gpu if not e.name.startswith(SPANS)]
-    per_span, per_kernel = {}, {}
+    per_span, per_kernel, inclusive = {}, {}, {}
     for k in kernels:
         t0, t1 = k.time_range.start, k.time_range.end
         holders = [s for s in spans
@@ -147,6 +151,9 @@ def profile(step, state, frames):
             if holders else "(outside spans)"
         us = k.time_range.elapsed_us()
         per_span[owner] = per_span.get(owner, 0.0) + us
+        for name in {s.name for s in holders if s.name.startswith(OUTER)}:
+            n, tot = inclusive.get(name, (0, 0.0))
+            inclusive[name] = (n + 1, tot + us)
         n, tot = per_kernel.get(k.name, (0, 0.0))
         per_kernel[k.name] = (n + 1, tot + us)
     busy_ms = sum(per_span.values()) / 1000.0
@@ -157,6 +164,12 @@ def profile(step, state, frames):
     print("span (kernels in it, innermost)   device ms/frame")
     for name, us in sorted(per_span.items(), key=lambda kv: -kv[1]):
         print(f"{name:<34}{us / 1000 / frames:>15.3f}")
+    if inclusive:
+        print("span (every kernel inside)        device ms/frame  launches")
+        for name, (n, us) in sorted(inclusive.items(),
+                                    key=lambda kv: -kv[1][1]):
+            print(f"{name:<34}{us / 1000 / frames:>15.3f}"
+                  f"{n // frames:>10}")
     print("kernel (top 15)                                     ms/frame  calls")
     for name, (n, us) in sorted(per_kernel.items(),
                                 key=lambda kv: -kv[1][1])[:15]:

@@ -1,0 +1,107 @@
+"""Renders the JAX package's images that tests/test_torch_shadow.py holds
+bevy_tpu_torch against, into tests/goldens/:
+
+- shadow_dir_c2.png, shadow_spot.png, shadow_point.png: the directional
+  (2 cascades), spot and point shadow worlds (tests/torch_scenes.py
+  shadow_world, the scenes of tests/test_shadow.py, test_spot_shadow.py
+  and test_point_shadow.py at 160x96);
+- tint_red.npz, aniso_09.npz: the linear colour (H, W, 4) of the
+  red-tinted dielectric sphere of tests/test_specular_tint.py and of the
+  anisotropic metal sphere (strength 0.9) of tests/test_anisotropy.py
+  (material_world); linear, since the sRGB image of the tinted sphere
+  clips its highlight and barely changes with the tint;
+- shadow_caster_depth.npz: one depth-only raster_batched pass of the
+  fixed caster set torch_scenes.caster_pass at 512x512;
+- torch_goldens.json: each image's torch_scenes.golden_key (a hash of
+  its scene builder and arguments), which the test asserts.
+
+Every JAX plugin runs with backend="pallas_interpret" (its Pallas kernels
+in interpret mode, never the XLA raster "auto" takes on a CPU). Each
+world takes one to three minutes of interpret-mode compiling on a CPU,
+which is why the test reads stored images instead of rendering them.
+
+    python tests/make_torch_goldens.py              # all
+    python tests/make_torch_goldens.py shadow_spot  # some
+"""
+
+from __future__ import annotations
+
+import importlib
+import json
+import sys
+from pathlib import Path
+from types import SimpleNamespace
+
+import jax
+
+jax.config.update("jax_platforms", "cpu")
+
+import numpy as np  # noqa: E402
+
+HERE = Path(__file__).resolve().parent
+sys.path.insert(0, str(HERE.parent))
+sys.path.insert(0, str(HERE))
+
+import torch_scenes  # noqa: E402
+
+GOLDENS = HERE / "goldens"
+JAX_KW = {"backend": "pallas_interpret"}
+
+
+def jax_modules():
+    return {k: importlib.import_module(f"bevy_tpu{v}")
+            for k, v in torch_scenes.SCENE_MODULES.items()}
+
+
+def caster_depth():
+    """JAX raster_batched(depth_only=True) of caster_pass, (S, S)."""
+    import jax.numpy as jnp
+    from bevy_tpu.render.mesh import cuboid
+    from bevy_tpu.render.mesh3d import raster_batched
+
+    size = torch_scenes.CASTER_MAP
+    clip = jnp.asarray(torch_scenes.caster_pass())
+    ni, vc = clip.shape[:2]
+    t = SimpleNamespace(color=jnp.zeros((4, size, size), jnp.float32),
+                        depth=jnp.zeros((size, size), jnp.float32))
+    st = SimpleNamespace(pair_overflow=jnp.zeros((), jnp.int32),
+                         tile_overflow=jnp.zeros((), jnp.int32))
+    raster_batched(clip, jnp.zeros((ni, vc, 3), jnp.float32),
+                   cuboid(1.0, 1.0, 1.0).triangles, jnp.ones(ni, bool),
+                   jnp.ones((ni, 4), jnp.float32),
+                   jnp.zeros((ni, 3), jnp.float32),
+                   jnp.zeros(16, jnp.float32), t, st, depth_only=True,
+                   width=size, height=size, tile_h=16, tile_w=128,
+                   interpret=True)
+    if int(st.pair_overflow) or int(st.tile_overflow):
+        raise AssertionError("the caster pass overflowed")
+    return np.asarray(t.depth)
+
+
+def render(name):
+    m = jax_modules()
+    fn, args = torch_scenes.GOLDEN_SCENES[name]
+    if name == "shadow_caster_depth":
+        np.savez_compressed(GOLDENS / f"{name}.npz", depth=caster_depth())
+    elif fn is torch_scenes.material_world:
+        color = fn(m, args[0], {}, JAX_KW, *args[1:])[1]
+        np.savez_compressed(GOLDENS / f"{name}.npz",
+                            color=color.astype(np.float32))
+    else:
+        img = fn(m, args[0], {}, JAX_KW, *args[1:])[0]
+        from PIL import Image
+        Image.fromarray(img.astype(np.uint8)).save(GOLDENS / f"{name}.png")
+    keys_path = GOLDENS / "torch_goldens.json"
+    keys = json.loads(keys_path.read_text()) if keys_path.exists() else {}
+    keys[name] = torch_scenes.golden_key(name)
+    keys_path.write_text(json.dumps(keys, indent=1, sort_keys=True) + "\n")
+
+
+NAMES = tuple(torch_scenes.GOLDEN_SCENES)
+
+if __name__ == "__main__":
+    for n in sys.argv[1:] or NAMES:
+        if n not in NAMES:
+            raise SystemExit(f"unknown golden {n!r}: one of {NAMES}")
+        render(n)
+        print("wrote", n)

@@ -30,7 +30,7 @@ PORT_FILES = sorted((ROOT / "bevy_tpu_torch").rglob("*.py")) + sorted(
         ROOT / "chip_smoke.py", ROOT / "tests" / "torch_scenes.py"]
 TWINS = ("torch_many_cubes", "torch_many_lights", "torch_many_sprites",
          "torch_bevymark", "torch_breakout", "torch_3d_shapes",
-         "torch_many_foxes")
+         "torch_many_foxes", "torch_shadow_showcase")
 
 
 def _imports(path):

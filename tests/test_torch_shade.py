@@ -511,20 +511,24 @@ def test_no_lights_leaves_ambient_only():
 
 
 def test_deferred_plugin_refuses_unported_features():
-    """Specular tint and anisotropy (both A4b) in the plugin raise instead
-    of rendering something else; sharded shading (ported) over more CUDA
-    cards than exist raises instead of falling back to fewer or the CPU."""
+    """Transmission and depth bias (both A8) in a deferred world raise
+    instead of rendering something else, naming their ROADMAP item;
+    sharded shading (ported) over more CUDA cards than exist raises
+    instead of falling back to fewer or the CPU. Specular tint and
+    anisotropy (A4b, ported) render: tests/test_torch_shadow.py."""
     import torch_many_lights
     from bevy_tpu_torch.render.deferred import DeferredLightingPlugin
-    from bevy_tpu_torch.render.mesh3d import MeshMaterial
+    from bevy_tpu_torch.render.mesh3d import Mesh3d, MeshMaterial
+    from bevy_tpu_torch.transform import transform_bundle
 
     with pytest.raises(ValueError, match="devices"):
         DeferredLightingPlugin(shards=torch.cuda.device_count() + 1)
-    for values, item in (({"specular_tint": (1.0, 0.5, 0.5)}, "A4b"),
-                         ({"anisotropy_strength": 0.5}, "A4b")):
+    for values, item in (({"specular_transmission": 0.5}, "A8"),
+                         ({"depth_bias": 1.0}, "A8")):
         app = torch_many_lights.build_app(device="cpu", n_lights=4,
                                           n_cubes=1, width=128, height=64,
                                           capacity=16)
-        app.world.spawn(MeshMaterial(**values))
+        app.world.spawn(Mesh3d(mesh=0), MeshMaterial(**values),
+                        *transform_bundle())
         with pytest.raises(NotImplementedError, match=item):
             app.update(dt=1 / 60)

@@ -166,8 +166,9 @@ def test_general_route_refusals():
         tm3d.Mesh3dPlugin(backend="cuda")
     with pytest.raises(ValueError, match="group route"):
         tm3d.Mesh3dPlugin(backend="xla", shards=2)
-    # the group route draws smooth meshes (on the shade records) and still
-    # refuses anisotropy, naming its route
+    # the group route draws smooth meshes (on the shade records), and
+    # anisotropic ones since A4b, and still refuses depth bias, naming its
+    # route
     import torch_3d_shapes
     from bevy_tpu_torch.transform import transform_bundle
     app = torch_3d_shapes.build_app(device="cpu", backend="auto", **app_kw)
@@ -176,7 +177,10 @@ def test_general_route_refusals():
     app.world.spawn(tm3d.Mesh3d(mesh=0),
                     tm3d.MeshMaterial(anisotropy_strength=0.5),
                     *transform_bundle())
-    with pytest.raises(NotImplementedError, match="group route.*A4b"):
+    app.update(dt=1 / 60)
+    app.world.spawn(tm3d.Mesh3d(mesh=0), tm3d.MeshMaterial(depth_bias=1.0),
+                    *transform_bundle())
+    with pytest.raises(NotImplementedError, match="group route.*A8"):
         app.update(dt=1 / 60)
 
 

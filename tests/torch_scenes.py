@@ -1,9 +1,12 @@
 """Inputs shared by the port's CPU tests and chip_smoke.py: the sprite
 scenes, the scenes that stress the culls of kernels B1 (window-splat
 raster) and B5 (window-splat sprite raster), and the two slivers of the
-B7 / B8 scene (SLIVER_CORNERS, with_slivers), and the group-route
-worlds on the shade records (shade_record_world). Each builds its tensors
-from a seed with numpy and moves them to the `device` it is given."""
+B7 / B8 scene (SLIVER_CORNERS, with_slivers), the group-route worlds
+on the shade records (shade_record_world), and the deferred worlds of the
+shadow maps and the specular tint / anisotropy materials (shadow_world,
+material_world, caster_pass). Each builds its tensors from a seed with
+numpy and moves them to the `device` it is given; the worlds build with
+either package's modules (SCENE_MODULES)."""
 
 import numpy as np
 import torch
@@ -258,7 +261,9 @@ SCENE_MODULES = {
     "root": "", "render": ".render", "cam": ".render.camera",
     "mesh": ".render.mesh", "m3": ".render.mesh3d",
     "plug": ".render.plugin", "tex": ".render.texture", "time": ".time",
-    "tf": ".transform"}
+    "tf": ".transform", "deferred": ".render.deferred",
+    "shadow": ".render.shadow", "spot": ".render.spot_shadow",
+    "point": ".render.point_shadow"}
 
 
 def port_scene_modules():
@@ -346,3 +351,175 @@ def shade_record_world(m, kind, app_kw, plugin_kw):
         app.world.spawn(m3.Mesh3d(mesh=mid), m3.MeshMaterial(**kw), *tb(**t))
     app.update(dt=1 / 60)
     return m["plug"].frame_image(app).astype(int), app
+
+
+DOWN = (-0.7071, 0.0, 0.0, 0.7071)            # -Z turned to -Y
+
+
+def shadow_world(m, kind, app_kw, jax_kw, shadows=True, occluder=True,
+                 cascades=2, occluder_at=None, shards=None):
+    """One frame (or `frames`) of the deferred shadow worlds of
+    tests/test_shadow.py ("dir": a directional light, ShadowPlugin with
+    maps of 256, extent 12, distance 20 and `cascades`),
+    tests/test_spot_shadow.py ("spot": a spot straight down, maps of 256)
+    and tests/test_point_shadow.py ("point": a point light over the floor,
+    maps of 128), at 160x96, built with the modules `m` (SCENE_MODULES of
+    either package); app_kw go to App (the port's device), jax_kw to every
+    JAX plugin ({"backend": "pallas_interpret"}: its kernels in interpret
+    mode). `shadows` False leaves the ShadowPlugin out ("dir") or gives the
+    light shadows=0 (the binned shade); `occluder` adds the red cube at
+    `occluder_at` (the last Mesh3d row); `shards` (the port) shades in row
+    bands. Returns (sRGB image (H, W, 4) int, app)."""
+    m3, tb = m["m3"], m["tf"].transform_bundle
+    cube_mesh = m["mesh"].cuboid(1.0, 1.0, 1.0)
+    app = m["root"].App(capacity=32, **app_kw)
+    plugin = m3.Mesh3dPlugin(deferred=True, **jax_kw)
+    cube = plugin.add_mesh(cube_mesh)
+    plugins = [m["time"].TimePlugin(), m["tf"].TransformPlugin(),
+               m["render"].RenderPlugin(width=160, height=96), plugin,
+               m["deferred"].DeferredLightingPlugin(
+                   **jax_kw, **({} if shards is None else {"shards": shards}))]
+    if kind == "dir" and shadows:
+        plugins.append(m["shadow"].ShadowPlugin(
+            plugin, size=256, extent=12.0, distance=20.0, cascades=cascades,
+            **jax_kw))
+    elif kind == "spot":
+        plugins.append(m["spot"].SpotShadowPlugin(plugin, size=256,
+                                                  **jax_kw))
+    elif kind == "point":
+        plugins.append(m["point"].PointShadowPlugin(plugin, size=128,
+                                                    **jax_kw))
+    app.add_plugins(*plugins)
+    app.insert_resource(m3.AmbientLight(
+        brightness=0.05 if kind == "dir" else 0.03))
+    app.world.spawn(m["cam"].Camera3d(), *tb(
+        translation=(0.0, 10.0 if kind == "dir" else 8.0, 0.01),
+        rotation=DOWN))
+    if kind == "dir":
+        app.world.spawn(m3.DirectionalLight(illuminance=1.0),
+                        *tb(rotation=(-0.35, 0.35, 0.0, 0.87)))
+    elif kind == "spot":
+        app.world.spawn(m["deferred"].SpotLight(
+            intensity=60.0, range=30.0, inner_angle=0.5, outer_angle=0.8,
+            shadows=int(shadows)), *tb(translation=(0.0, 6.0, 0.0),
+                                       rotation=DOWN))
+    else:
+        app.world.spawn(m["deferred"].PointLight(
+            intensity=60.0, range=30.0, shadows=int(shadows)),
+            *tb(translation=(0.0, 5.0, 0.0)))
+    floor = 20.0 if kind == "dir" else 16.0
+    app.world.spawn(m3.Mesh3d(mesh=cube),
+                    m3.MeshMaterial(base_color=(0.8, 0.8, 0.8, 1.0)),
+                    *tb(translation=(0.0, -0.5, 0.0),
+                        scale=(floor, 1.0, floor)))
+    if occluder:
+        at = occluder_at or (0.0, 1.5 if kind == "dir" else 2.0, 0.0)
+        app.world.spawn(m3.Mesh3d(mesh=cube),
+                        m3.MeshMaterial(base_color=(0.8, 0.2, 0.2, 1.0)),
+                        *tb(translation=at))
+    app.update(dt=1 / 60)
+    return m["plug"].frame_image(app).astype(int), app
+
+
+def material_world(m, kind, app_kw, jax_kw, value, metallic=0.0, rot=0.0,
+                   rough=None, hidden_aniso=False):
+    """One frame of the deferred sphere of tests/test_specular_tint.py
+    ("tint": `value` the specular tint, 96x72, roughness 0.15) or
+    tests/test_anisotropy.py ("aniso": `value` the anisotropy strength,
+    `rot` its rotation, metallic, 128x96, roughness 0.35), one point
+    light, built with the modules `m` as shadow_world. `hidden_aniso`
+    adds the second sphere behind the camera with strength 0.8 (the
+    anisotropic variant for a visible sphere without anisotropy). Returns
+    (sRGB image (H, W, 4) int, linear colour (H, W, 4) float, app)."""
+    m3, tb = m["m3"], m["tf"].transform_bundle
+    tint = kind == "tint"
+    app = m["root"].App(capacity=16, **app_kw)
+    plugin = m3.Mesh3dPlugin(deferred=True, **jax_kw)
+    sphere = plugin.add_mesh(m["mesh"].uv_sphere(0.9, 24, 16))
+    app.add_plugins(m["time"].TimePlugin(), m["tf"].TransformPlugin(),
+                    m["render"].RenderPlugin(width=96 if tint else 128,
+                                             height=72 if tint else 96),
+                    plugin, m["deferred"].DeferredLightingPlugin(**jax_kw))
+    app.insert_resource(m3.AmbientLight(brightness=0.02))
+    app.world.spawn(m["cam"].Camera3d(), *tb(translation=(0, 0, 3)))
+    app.world.spawn(m["deferred"].PointLight(
+        intensity=30.0 if tint else 20.0, range=40.0 if tint else 30.0),
+        *tb(translation=(1.5, 1.5, 2.5) if tint else (0.5, 0.5, 2.5)))
+    if tint:
+        mat = dict(base_color=(0.5, 0.5, 0.5, 1.0), metallic=metallic,
+                   perceptual_roughness=0.15, specular_tint=value)
+    else:
+        mat = dict(base_color=(0.2, 0.2, 0.25, 1.0),
+                   perceptual_roughness=rough or 0.35, metallic=1.0,
+                   anisotropy_strength=value, anisotropy_rotation=rot)
+    app.world.spawn(m3.Mesh3d(mesh=sphere), m3.MeshMaterial(**mat), *tb())
+    if hidden_aniso:
+        app.world.spawn(m3.Mesh3d(mesh=sphere),
+                        m3.MeshMaterial(anisotropy_strength=0.8),
+                        *tb(translation=(0.0, 0.0, 30.0)))
+    app.update(dt=1 / 60)
+    color = np.asarray(app.world.state["res"]["render_target"]["color"])
+    return (m["plug"].frame_image(app).astype(int),
+            np.moveaxis(color, 0, -1), app)
+
+
+CASTER_MAP = 512       # caster_pass's map: a straddler's full-map box
+#                        exceeds B1's 32 windows, so it takes B2
+
+
+def caster_pass(seed=0, n=6):
+    """A fixed caster set for one depth-only pass into a CASTER_MAP map:
+    clip-space positions (n, 24, 4) of `n` unit cubes at random poses under
+    a light's perspective view (two straddling its near plane), as
+    numpy."""
+    rng = np.random.RandomState(seed)
+    from bevy_tpu_torch.render.mesh import cuboid
+    pos = cuboid(1.0, 1.0, 1.0).positions
+    fov, near = 1.2, 0.1
+    f = 1.0 / np.tan(fov / 2)
+    out = np.zeros((n, len(pos), 4), np.float32)
+    for i in range(n):
+        a = rng.normal(size=3)
+        ang = np.linalg.norm(a)
+        k = a / ang
+        kx = np.array([[0, -k[2], k[1]], [k[2], 0, -k[0]],
+                       [-k[1], k[0], 0]])
+        r = np.eye(3) + np.sin(ang) * kx + (1 - np.cos(ang)) * kx @ kx
+        c = np.array([rng.uniform(-2, 2), rng.uniform(-2, 2),
+                      -rng.uniform(0.3, 6)]) if i % 3 else \
+            np.array([rng.uniform(-0.3, 0.3), rng.uniform(-0.3, 0.3), -0.4])
+        v = pos @ r.T * rng.uniform(0.5, 1.5) + c
+        out[i, :, 0] = f * v[:, 0]
+        out[i, :, 1] = f * v[:, 1]
+        out[i, :, 2] = near
+        out[i, :, 3] = -v[:, 2]
+    return out
+
+
+# the outputs in tests/goldens/ that tests/make_torch_goldens.py renders
+# through the JAX package, each with its scene builder's arguments after
+# the modules and keywords (`value` of material_world; the caster map has
+# none)
+GOLDEN_SCENES = {
+    "shadow_dir_c2": (shadow_world, ("dir",)),
+    "shadow_spot": (shadow_world, ("spot",)),
+    "shadow_point": (shadow_world, ("point",)),
+    "tint_red": (material_world, ("tint", (1.0, 0.05, 0.05))),
+    "aniso_09": (material_world, ("aniso", 0.9)),
+    "shadow_caster_depth": (caster_pass, ()),
+}
+
+
+def golden_key(name):
+    """A short sha256 of what renders the stored image `name`: its scene
+    builder's source, the module constants the builders read and its
+    arguments. tests/make_torch_goldens.py writes it into
+    goldens/torch_goldens.json beside the image; the test asserts it, so
+    a changed scene fails until its image is rendered again."""
+    import hashlib
+    import inspect
+    fn, args = GOLDEN_SCENES[name]
+    text = "\n".join([name, inspect.getsource(fn), repr(args), repr(DOWN),
+                      repr(CASTER_MAP)])
+    return hashlib.sha256(text.encode()).hexdigest()[:16]
+
