@@ -1,7 +1,8 @@
 """Systems (port of bevy_tpu/ecs/system.py; ref: bevy_ecs function systems).
 
 A system is a plain function whose default argument values declare its
-params (Query / Res / ResMut / Commands / MessageWriter / MessageReader)::
+params (Query / Res / ResMut / Commands / MessageWriter / MessageReader,
+and any type added with `register_param_type`, such as render Gizmos)::
 
     @system
     def apply_velocity(q=Query(Transform, Read(Velocity)), time=Res(Time)):
@@ -26,6 +27,14 @@ from bevy_tpu_torch.ecs.message import MessageReader, MessageWriter
 from bevy_tpu_torch.ecs.query import Query, Res
 
 PARAM_TYPES = (Query, Res, Commands, MessageWriter, MessageReader)
+
+
+def register_param_type(cls):
+    """Extend the accepted system-param set (used by e.g. render Gizmos).
+    A param type has `build(state, world, sysctx)`, returning a view whose
+    `merge(state, tick)` returns the new state after the body."""
+    global PARAM_TYPES
+    PARAM_TYPES = PARAM_TYPES + (cls,)
 
 
 class System:

@@ -32,13 +32,34 @@ def pick_camera(mask):
     return torch.argmax(mask.to(torch.uint8)), torch.any(mask)
 
 
+def camera_row(column, idx):
+    """Row `idx` (a 0-d index tensor, from pick_camera / select_cameras)
+    of a camera column, gathered on the device: indexing with a 0-d
+    tensor would read it back to the host, a sync a pick."""
+    return column.index_select(0, idx.reshape(1))[0]
+
+
+def select_cameras(order, mask, k: int):
+    """First k alive cameras in ascending `order`, ties broken by row
+    (ref: ascending Camera::order drives the render-pass sequence): the
+    int32 key order * n + row, a stable argsort. Returns (ids (k,) int32,
+    valid (k,) bool)."""
+    n = order.shape[0]
+    rows = torch.arange(n, dtype=torch.int32, device=order.device)
+    key = torch.where(mask, order * n + rows,
+                      torch.full_like(rows, 2 ** 31 - 1))
+    ids = torch.argsort(key, stable=True)[:k]
+    return ids.to(torch.int32), mask[ids]
+
+
 @component
 class Camera2d:
     """2D orthographic camera (ref: Camera2d + OrthographicProjection with
     ScalingMode::WindowSize). `scale` = world units per pixel; `order`
-    breaks ties between cameras (ref: Camera::order). The sprite pass
-    draws one camera over the full target; vp_min/vp_max other than the
-    full rect (2D split-screen) are not ported (ROADMAP A6b)."""
+    breaks ties between cameras (ref: Camera::order). vp_min/vp_max: the
+    viewport rect as target-size fractions (ref: Camera::viewport — 2D
+    split-screen); the sprite pass reads them when built with
+    max_cameras > 1."""
     scale = field((), default=1.0)
     order = field((), torch.int32, default=0)
     layers = field((), torch.int32, default=1)  # ref: RenderLayers bitmask

@@ -18,6 +18,7 @@ from bevy_tpu_torch.color import image_to_srgb_u8
 from bevy_tpu_torch.ecs.component import field, resource
 from bevy_tpu_torch.ecs.query import Res, ResMut
 from bevy_tpu_torch.ecs.system import system
+from bevy_tpu_torch.render.texture import TextureAtlas
 
 
 class RenderTarget:
@@ -36,6 +37,7 @@ QUEUE_SET = "render:queue"
 PASS_SET = "render:pass"        # 3D geometry passes (forward or G-buffer)
 SHADE_SET = "render:shade"      # deferred lighting resolve
 OVERLAY_SET = "render:overlay"  # transparent 2D composition (sprites)
+POST_SET = "render:post"        # after the overlay (the gizmo buffer clear)
 
 
 @system(name="clear_render_target")
@@ -61,6 +63,11 @@ class RenderPlugin(Plugin):
             "size": torch.tensor([w, h], dtype=torch.float32, device=dev),
             "ssaa": torch.tensor(1, dtype=torch.int32, device=dev),
         })
+        if TextureAtlas.RESOURCE not in app.world.state["res"]:
+            # a 1x1 white atlas until the app installs its own
+            app.insert_resource(TextureAtlas.RESOURCE, {
+                "data": torch.ones((1, 1, 4), dtype=torch.float32,
+                                   device=dev)})
         sched = app.schedule(Render)
         sched.configure_set(CLEAR_SET)
         sched.configure_set(QUEUE_SET, after=CLEAR_SET)
@@ -68,6 +75,7 @@ class RenderPlugin(Plugin):
         sched.configure_set(SHADE_SET, after=[CLEAR_SET, PASS_SET])
         sched.configure_set(OVERLAY_SET,
                             after=[CLEAR_SET, PASS_SET, SHADE_SET])
+        sched.configure_set(POST_SET, after=[CLEAR_SET, OVERLAY_SET])
         app.add_systems(Render, clear_render_target, in_set=CLEAR_SET)
 
 

@@ -148,7 +148,30 @@ source, all started together), then:
    near-plane casters out of the lights' views and checks that the
    1024^2 B2 calls list fewer (tile, cluster) entries without them: the
    straddlers reach B2 inside the spot and point passes, in calls held
-   bit-equal in phase 29.
+   bit-equal in phase 29;
+31. renders the small 2D frames on the card and on the CPU (the
+   examples/torch_*.py twins text2d, sprite_sheet, tilemap across its
+   tile edit, 2d_gizmos, split_screen_2d at 640x360 in tiles and splat
+   mode; tests/torch_scenes.py text_world: a DigitText counter and rich
+   text, gizmo_world: 2D, 3D and retained gizmos with stroke text,
+   slice_world: 9-slice and tiled sprites): the two images under the
+   golden rule, every B4 (sprite and gizmo pass) and B5 call bit-equal to
+   plain, with the block / warp cull counts summed over the calls and 0
+   dropped but covered;
+32. runs many_text2d at 1280x720 (the JAX example's scene at its density:
+   480 labels, about 2,200 glyph sprites), in tiles and in splat mode:
+   20 frames timed, B4 (or B5) once a frame and no other kernel, the
+   overflows 0, one frame's call bit-equal to plain with its cull counts,
+   its device time beside its bound, and 5 frames profiled (tiles);
+33. runs many_gizmos at 1280x720 (16,000 lines a frame): 20 frames timed,
+   B4 twice a frame (the sprite and the gizmo pass) and no other kernel,
+   the gizmo overflows 0, both calls of one frame bit-equal to plain with
+   their cull counts, the gizmo pass's call timed (events, device, plain)
+   beside its bound, 5 frames profiled;
+34. runs split_screen_2d at 1280x720 (two cameras), in tiles and in splat
+   mode: 20 frames timed, B4 (or B5) once a camera a frame and no other
+   kernel, the overflows 0, both calls of one frame bit-equal to plain,
+   5 frames profiled (tiles).
 
 The shards of phases 15-19 all sit on the one card (a ShardMesh may repeat
 a device): their work runs one shard after another.
@@ -298,18 +321,20 @@ def read_png_rgba8(path):
 class Recorder:
     """Wraps the kernel entry points where the port's modules call them
     (mesh3d: B1, B2, and B7 / B8 — one wrapper, `raster_tris`, told apart
-    by its layout; deferred and parallel/raster: B3; sprite: B4, B5;
-    parallel/raster: B6) to keep the arguments of every call (for the
-    kernel-vs-plain comparisons)."""
+    by its layout; deferred and parallel/raster: B3; sprite and gizmos:
+    B4, sprite: B5; parallel/raster: B6) to keep the arguments of every
+    call (for the kernel-vs-plain comparisons), and the calling module's
+    name of each (`origin`)."""
 
     def __init__(self):
         from bevy_tpu_torch.parallel import raster as par_raster
-        from bevy_tpu_torch.render import deferred, mesh3d, sprite
+        from bevy_tpu_torch.render import deferred, gizmos, mesh3d, sprite
         self.sites = {"B1": (mesh3d,), "B2": (mesh3d,),
-                      "B3": (deferred, par_raster), "B4": (sprite,),
+                      "B3": (deferred, par_raster), "B4": (sprite, gizmos),
                       "B5": (sprite,), "B6": (par_raster,),
                       "B7": (mesh3d,), "B8": (mesh3d,)}
         self.calls = {kid: [] for kid in self.sites}
+        self.origin = {kid: [] for kid in self.sites}
         self.orig = {}
         for kid, mods in self.sites.items():
             for mod in mods:
@@ -317,8 +342,10 @@ class Recorder:
 
     def __enter__(self):
         for (mod, name), fn in self.orig.items():
-            def rec(*a, _f=fn, **kw):
-                self.calls[kernel_id(_f, kw)].append((a, kw))
+            def rec(*a, _f=fn, _m=mod.__name__.rsplit(".", 1)[-1], **kw):
+                kid = kernel_id(_f, kw)
+                self.calls[kid].append((a, kw))
+                self.origin[kid].append(_m)
                 return _f(*a, **kw)
             setattr(mod, name, rec)
         return self
@@ -2440,6 +2467,210 @@ def tri_phases(dev, n, smi, results):
     torch.cuda.synchronize()
 
 
+def cull_totals(kid, calls):
+    """B4 / B5 cull counts summed over recorded calls (work_b4 / work_b5:
+    the pairs the old walk reaches, the cull keeps, covered, and dropped
+    but covered, which must be 0)."""
+    work = work_b4 if kid == "B4" else work_b5
+    tot = {}
+    for a, kw in calls:
+        for k, v in work(a, kw).items():
+            tot[k] = tot.get(k, 0) + v
+    if tot["dropped"]:
+        raise AssertionError(f"{kid}'s cull dropped {tot['dropped']} "
+                             f"covered pairs")
+    return tot
+
+
+def check_kernel_calls(name, rec, kids=("B4", "B5")):
+    """Every recorded B4 / B5 call of `rec` against plain, bit for bit,
+    with the cull counts summed over the calls; returns the calls' count
+    by kernel."""
+    out = {}
+    for kid in kids:
+        calls = rec.calls[kid]
+        out[kid] = len(calls)
+        if not calls:
+            continue
+        errs = [compare(kid, a, kw) for a, kw in calls]
+        t = cull_totals(kid, calls)
+        by = {o: rec.origin[kid].count(o) for o in sorted(set(
+            rec.origin[kid]))}
+        log(f"{kid} vs plain, {name}: {len(errs)} calls {by} bit-equal (max "
+            f"abs err {max(errs)}); cull: pairs the old walk reached "
+            f"{t['walked']}, the {'block' if kid == 'B4' else 'warp'} cull "
+            f"keeps {t['kept']}, covered {t['covered']}, dropped but "
+            f"covered {t['dropped']}")
+    return out
+
+
+STATS_2D = ("pair_overflow", "tile_overflow", "visible_overflow")
+GIZMO_STATS = ("gizmo_pair_overflow", "gizmo_tile_overflow")
+
+
+def twin_2d_phases(dev, n, smi):
+    """Phases 31-34: the rest of 2D (text, sprite sheets, tilemaps, 9-slice
+    and tiled sprites, gizmos, split-screen) on B4 and B5."""
+    import torch_2d_gizmos
+    import torch_many_gizmos
+    import torch_many_text2d
+    import torch_split_screen_2d
+    import torch_sprite_sheet
+    import torch_text2d
+    import torch_tilemap
+    from torch_many_cubes import profile
+    from torch_scenes import (
+        gizmo_world, port_scene_modules, slice_world, text_world,
+    )
+    from bevy_tpu_torch.render import frame_image
+
+    # -- 31: the small frames, the card against the CPU -------------------
+    pm = port_scene_modules()
+    small = [
+        ("text2d", lambda d: torch_text2d.build_app(device=d), 1, 1 / 60),
+        ("sprite_sheet", lambda d: torch_sprite_sheet.build_app(device=d),
+         10, 1 / 60),
+        ("tilemap (across the tide's tile edit)",
+         lambda d: torch_tilemap.build_app(device=d), 5, 0.25),
+        ("2d_gizmos", lambda d: torch_2d_gizmos.build_app(device=d), 3,
+         1 / 60),
+        ("split_screen_2d 640x360 tiles",
+         lambda d: torch_split_screen_2d.build_app(640, 360, device=d), 5,
+         1 / 60),
+        ("split_screen_2d 640x360 splat",
+         lambda d: torch_split_screen_2d.build_app(640, 360, mode="splat",
+                                                   device=d), 5, 1 / 60),
+        ("text_world (digits, rich text)",
+         lambda d: text_world(pm, {"device": d}), 12, 1 / 60),
+        ("gizmo_world (2D, 3D, retained, stroke text)",
+         lambda d: gizmo_world(pm, {"device": d}), 2, 1 / 60),
+        ("slice_world (9-slice, tiled)",
+         lambda d: slice_world(pm, {"device": d}), 1, 1 / 60),
+    ]
+    for name, build, frames, dt in small:
+        with Recorder() as rec:
+            app = build(dev)
+            app.run(max_frames=frames, dt=dt)
+        torch.cuda.synchronize()
+        cpu = build("cpu")
+        cpu.run(max_frames=frames, dt=dt)
+        img = frame_image(app)
+        d = np.abs(img.astype(int) - frame_image(cpu).astype(int)).max(-1)
+        frac = float((d > 8).mean())
+        log(f"{name} ({frames} frames) on the card vs the CPU: {frac:.4%} "
+            f"of pixels drift > 8 (max channel diff {d.max()}, "
+            f"{int((d > 0).sum())} pixels differ); drawn pixels "
+            f"{frame_drawn(app.world.state):.3f}")
+        if frac >= 0.01:
+            raise AssertionError(f"{name}: the card's frame differs from "
+                                 f"the CPU's")
+        calls = check_kernel_calls(name, rec)
+        if not calls["B4"] + calls["B5"]:
+            raise AssertionError(f"{name} launched no sprite kernel")
+        stats = app.world.state["res"]["render_stats"]
+        check_stats(app.world.state, [k for k in STATS_2D + GIZMO_STATS
+                                      if k in stats])
+        del app, cpu, rec
+
+    # -- 32: many_text2d at 1280x720, tiles (B4) and splat (B5) -----------
+    labels = torch_many_text2d.n_labels_for(1280, 720)
+    for mode, kid in (("tiles", "B4"), ("splat", "B5")):
+        app = torch_many_text2d.build_app(mode=mode, device=dev)
+        glyphs = app.world.entity_count() - 1
+        ms, launches, stats, _ = timed_frames(app, n)
+        others = {k: v for k, v in launches.items() if k != kid and v}
+        log(f"many_text2d {labels} labels ({glyphs} glyph sprites) "
+            f"@1280x720, {mode}: {ms:.3f} ms/frame over {n} frames (CUDA "
+            f"events; {smi})")
+        log(f"launches in those {n} frames: {kid} {launches[kid]}, others "
+            f"{others}; pair_overflow {stats['pair_overflow']}, "
+            f"tile_overflow {stats['tile_overflow']}, visible_overflow "
+            f"{stats['visible_overflow']}; drawn pixels "
+            f"{frame_drawn(app.world.state):.3f}")
+        if launches[kid] != n or others:
+            raise AssertionError(f"launches on the many_text2d path: "
+                                 f"{launches}")
+        check_stats(app.world.state, STATS_2D)
+        with Recorder() as rec:
+            app.update(dt=1 / 60)
+        torch.cuda.synchronize()
+        check_kernel_calls(f"many_text2d 1280x720 {mode}", rec, (kid,))
+        a, kw = rec.calls[kid][-1]
+        k_ms, rows = device_ms(lambda: kernel_fn(kid)(*a, **kw))
+        b = BOUNDS[kid](a, kw)
+        log(f"{kid} in the many_text2d {mode} frame: device {k_ms:.4f} ms a "
+            f"call (20 queued behind a spin kernel), bound {b[0]:.4f} ms "
+            f"({b[1]})")
+        if mode == "tiles":
+            profile(app.frame_fn(), app.world.state, 5)
+        del app, rec
+        torch.cuda.empty_cache()
+
+    # -- 33: many_gizmos at 1280x720: B4 in the sprite and gizmo passes ---
+    lines = torch_many_gizmos.n_lines_for(1280, 720)
+    app = torch_many_gizmos.build_app(device=dev)
+    ms, launches, stats, _ = timed_frames(app, n)
+    others = {k: v for k, v in launches.items() if k != "B4" and v}
+    log(f"many_gizmos {lines} lines @1280x720: {ms:.3f} ms/frame over {n} "
+        f"frames (CUDA events; {smi})")
+    log(f"launches in those {n} frames: B4 {launches['B4']} (the sprite "
+        f"and the gizmo pass), others {others}; gizmo_pair_overflow "
+        f"{stats['gizmo_pair_overflow']}, gizmo_tile_overflow "
+        f"{stats['gizmo_tile_overflow']}; drawn pixels "
+        f"{frame_drawn(app.world.state):.3f}")
+    if launches["B4"] != 2 * n or others:
+        raise AssertionError(f"launches on the many_gizmos path: {launches}")
+    check_stats(app.world.state, STATS_2D + GIZMO_STATS)
+    with Recorder() as rec:
+        app.update(dt=1 / 60)
+    torch.cuda.synchronize()
+    if rec.origin["B4"] != ["sprite", "gizmos"]:
+        raise AssertionError(f"many_gizmos B4 calls: {rec.origin['B4']}")
+    check_kernel_calls("many_gizmos 1280x720", rec, ("B4",))
+    a, kw = rec.calls["B4"][1]
+    k_ms = cuda_ms(lambda: kernel_fn("B4")(*a, **kw), 20)
+    p_ms = cuda_ms(lambda: plain_fn("B4")(*a, **kw), 3)
+    d_ms, _ = device_ms(lambda: kernel_fn("B4")(*a, **kw))
+    b = BOUNDS["B4"](a, kw)
+    log(f"B4 in the many_gizmos gizmo pass ({a[1].shape[0]} buffer rows "
+        f"sorted, {int(a[4].sum())} listed (tile, quad) pairs, most in a "
+        f"tile {int(a[4].max())}): kernel {k_ms:.4f} ms (CUDA events, 20 "
+        f"calls), device {d_ms:.4f} ms, plain {p_ms:.4f} ms, bound "
+        f"{b[0]:.4f} ms ({b[1]}; {b[2]}), {b[0] / max(d_ms, 1e-9):.1%} of the bound "
+        f"by device time")
+    profile(app.frame_fn(), app.world.state, 5)
+    del app, rec
+    torch.cuda.empty_cache()
+
+    # -- 34: split_screen_2d at 1280x720: one call a camera ---------------
+    for mode, kid in (("tiles", "B4"), ("splat", "B5")):
+        app = torch_split_screen_2d.build_app(mode=mode, device=dev)
+        ms, launches, stats, _ = timed_frames(app, n)
+        others = {k: v for k, v in launches.items() if k != kid and v}
+        log(f"split_screen_2d @1280x720, {mode}: {ms:.3f} ms/frame over "
+            f"{n} frames (CUDA events; {smi})")
+        log(f"launches in those {n} frames: {kid} {launches[kid]} (2 "
+            f"cameras), others {others}; pair_overflow "
+            f"{stats['pair_overflow']}, tile_overflow "
+            f"{stats['tile_overflow']}, visible_overflow "
+            f"{stats['visible_overflow']}; drawn pixels "
+            f"{frame_drawn(app.world.state):.3f}")
+        if launches[kid] != 2 * n or others:
+            raise AssertionError(f"launches on the split-screen path: "
+                                 f"{launches}")
+        check_stats(app.world.state, STATS_2D)
+        with Recorder() as rec:
+            app.update(dt=1 / 60)
+        torch.cuda.synchronize()
+        if check_kernel_calls(f"split_screen_2d 1280x720 {mode}", rec,
+                              (kid,))[kid] != 2:
+            raise AssertionError("split-screen: not one call a camera")
+        if mode == "tiles":
+            profile(app.frame_fn(), app.world.state, 5)
+        del app, rec
+    torch.cuda.synchronize()
+
+
 def main():
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -2709,6 +2940,8 @@ def main():
     fox_phases(dev, n, smi)
 
     shadow_phases(dev, n, smi)
+
+    twin_2d_phases(dev, n, smi)
 
     log(f"chip_smoke.py ran {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [results[k] for k in KERNELS]}))

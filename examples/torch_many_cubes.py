@@ -114,18 +114,18 @@ def build_app(n_cubes=160_000, width=1280, height=720, capacity=None,
 
 
 SPANS = ("system:", "mesh:", "lights:", "sprite:", "skin:",
-         "shadow:")                                      # profiler spans
+         "shadow:", "gizmo:", "tilemap:")                # profiler spans
 OUTER = ("shadow:",)       # spans also summed over every kernel inside
 
 
 def profile(step, state, frames):
     """torch.profiler over `frames` frames. Prints the device busy share
     of the window (kernel time / CUDA-event wall time), kernel time per
-    span (system:*, mesh:*, lights:*, sprite:*, skin:*, shadow:* — each
-    kernel counts toward the innermost span whose GPU-side range holds it,
-    so the ctypes-launched CUDA kernels are attributed too), the shadow:*
-    spans again with every kernel inside them (their mesh:* spans too),
-    and the top kernels."""
+    span (system:*, mesh:*, lights:*, sprite:*, skin:*, shadow:*, gizmo:*,
+    tilemap:* — each kernel counts toward the innermost span whose
+    GPU-side range holds it, so the ctypes-launched CUDA kernels are
+    attributed too), the shadow:* spans again with every kernel inside
+    them (their mesh:* spans too), and the top kernels."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as torch_profile
 

@@ -30,7 +30,9 @@ PORT_FILES = sorted((ROOT / "bevy_tpu_torch").rglob("*.py")) + sorted(
         ROOT / "chip_smoke.py", ROOT / "tests" / "torch_scenes.py"]
 TWINS = ("torch_many_cubes", "torch_many_lights", "torch_many_sprites",
          "torch_bevymark", "torch_breakout", "torch_3d_shapes",
-         "torch_many_foxes", "torch_shadow_showcase")
+         "torch_many_foxes", "torch_shadow_showcase", "torch_text2d",
+         "torch_many_text2d", "torch_sprite_sheet", "torch_tilemap",
+         "torch_2d_gizmos", "torch_many_gizmos", "torch_split_screen_2d")
 
 
 def _imports(path):
@@ -45,9 +47,11 @@ def _imports(path):
                          ids=[str(p.relative_to(ROOT)) for p in PORT_FILES])
 def test_port_never_imports_jax(path):
     """Parsed, not imported: JAX is preloaded in some environments, so
-    sys.modules cannot tell. Nor PIL: the card's machine has none."""
+    sys.modules cannot tell. Nor PIL or fontTools: the card's machine has
+    neither."""
     bad = [m for m in _imports(path)
-           if m.split(".")[0] in ("jax", "jaxlib", "bevy_tpu", "PIL")]
+           if m.split(".")[0] in ("jax", "jaxlib", "bevy_tpu", "PIL",
+                                  "fontTools")]
     assert not bad, f"{path.name} imports {bad}"
 
 

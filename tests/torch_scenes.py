@@ -4,9 +4,10 @@ raster) and B5 (window-splat sprite raster), and the two slivers of the
 B7 / B8 scene (SLIVER_CORNERS, with_slivers), the group-route worlds
 on the shade records (shade_record_world), and the deferred worlds of the
 shadow maps and the specular tint / anisotropy materials (shadow_world,
-material_world, caster_pass). Each builds its tensors from a seed with
-numpy and moves them to the `device` it is given; the worlds build with
-either package's modules (SCENE_MODULES)."""
+material_world, caster_pass), and the 2D worlds beyond the example
+twins (text_world, gizmo_world, slice_world, carried_world). Each builds
+its tensors from a seed with numpy and moves them to the `device` it is
+given; the worlds build with either package's modules (SCENE_MODULES)."""
 
 import numpy as np
 import torch
@@ -263,7 +264,10 @@ SCENE_MODULES = {
     "plug": ".render.plugin", "tex": ".render.texture", "time": ".time",
     "tf": ".transform", "deferred": ".render.deferred",
     "shadow": ".render.shadow", "spot": ".render.spot_shadow",
-    "point": ".render.point_shadow"}
+    "point": ".render.point_shadow", "sprite": ".render.sprite",
+    "text": ".render.text", "rich": ".render.rich_text",
+    "gizmos": ".render.gizmos", "tilemap": ".render.tilemap",
+    "system": ".ecs.system"}
 
 
 def port_scene_modules():
@@ -523,3 +527,178 @@ def golden_key(name):
                       repr(CASTER_MAP)])
     return hashlib.sha256(text.encode()).hexdigest()[:16]
 
+
+
+# ---------------------------------------------------------------------------
+# 2D worlds: each built with the modules `m` (SCENE_MODULES of either
+# package) and app_kw for App (the port's {"device": ...}; {} for JAX),
+# no frame run. Their inputs are Python numbers, so the systems run under
+# either package.
+
+HEB = "שלום"       # shalom: no glyph in the default font
+
+
+def _build_atlas(builder, app_kw):
+    """The packed atlas (the port's builder takes the device)."""
+    return builder.build(app_kw["device"]) if "device" in app_kw \
+        else builder.build()
+
+
+def _app_2d(m, app_kw, capacity, width, height, *plugins):
+    app = m["root"].App(capacity=capacity, **app_kw)
+    app.add_plugins(m["time"].TimePlugin(), m["tf"].TransformPlugin(),
+                    m["render"].RenderPlugin(width=width, height=height),
+                    *plugins)
+    app.world.spawn(m["cam"].Camera2d(), *m["tf"].transform_bundle())
+    return app
+
+
+def text_world(m, app_kw, width=240, height=160):
+    """A 4-slot digit counter reading the frame count (DigitText), and a
+    rich-text block over the default font (spawn_rich_text): spans of
+    three sizes and colours, wrapped at 150 px and centred, a word longer
+    than a line (split), and a Hebrew word in brackets (no glyph: laid out
+    right to left with the first font's advance, not spawned)."""
+    txt, rich = m["text"], m["rich"]
+    app = _app_2d(m, app_kw, 256, width, height, m["sprite"].SpritePlugin())
+    builder = m["tex"].AtlasBuilder(512, 256)
+    font = txt.FontAtlas(builder)
+    txt.spawn_digit_counter(app.world, font, num_digits=4,
+                            pos=(-110.0, 75.0), color=(1.0, 0.9, 0.3, 1.0))
+    app.add_systems(m["root"].Update,
+                    txt.make_digit_system(font, "frame_count", "count"))
+    spans = [rich.TextSpan("Big ", size=26.0, color=(1.0, 0.5, 0.3, 1.0)),
+             rich.TextSpan("and small words wrap ", size=13.0),
+             rich.TextSpan("unbreakablewordsplit ", size=9.75,
+                           color=(0.5, 0.8, 1.0, 1.0)),
+             rich.TextSpan("(" + HEB + ") end", size=13.0,
+                           color=(0.6, 1.0, 0.6, 1.0))]
+    rich.spawn_rich_text(app.world, spans, font, pos=(-110.0, 45.0),
+                         max_width=150.0, justify="center")
+    app.insert_resource(m["tex"].TextureAtlas.RESOURCE,
+                        {"data": _build_atlas(builder, app_kw)})
+    return app
+
+
+def gizmo_world(m, app_kw, width=240, height=160):
+    """2D, 3D and retained gizmos with stroke text: a Camera3d beside the
+    Camera2d; every frame a system draws 2D stroke text, a circle, an arc,
+    a cross and a rectangle, and 3D stroke text, a cuboid, a sphere, an XZ
+    grid, an arrow, axes and a ray; two retained segments (2D and 3D, with
+    a sprite's row between them: a masked row) draw too."""
+    tb = m["tf"].transform_bundle
+    gz = m["gizmos"]
+    app = _app_2d(m, app_kw, 16, width, height, m["sprite"].SpritePlugin(),
+                  gz.GizmosPlugin(capacity=1024))
+    app.world.spawn(m["cam"].Camera3d(),
+                    *tb(translation=(0.0, 2.0, 6.0),
+                        rotation=(-0.1305, 0.0, 0.0, 0.9914)))
+    app.world.spawn(gz.RetainedGizmo(a=(-100.0, -70.0, 0.0),
+                                     b=(100.0, -60.0, 0.0),
+                                     color=(0.9, 0.3, 0.9, 1.0), width=3.0,
+                                     is3d=False))
+    app.world.spawn(m["sprite"].Sprite(size=(12.0, 12.0),
+                                       color=(0.3, 0.3, 0.9, 1.0)),
+                    *tb(translation=(90.0, 60.0, 0.0)))
+    app.world.spawn(gz.RetainedGizmo(a=(-1.0, 1.5, 0.0), b=(1.0, 1.0, -1.0),
+                                     color=(0.3, 0.9, 0.9, 1.0)))
+
+    @m["system"].system
+    def draw(g=gz.Gizmos()):
+        g.text_2d((-110.0, 62.0), "Gizmo 2D 42", size=10.0,
+                  color=(1.0, 1.0, 0.4, 1.0))
+        g.circle_2d((-70.0, 0.0), 25.0, color=(1.0, 0.4, 0.2, 1.0))
+        g.arc_2d((70.0, 10.0), 20.0, 0.5, 3.0, color=(0.4, 1.0, 0.4, 1.0),
+                 segments=12)
+        g.cross_2d((0.0, -40.0), 8.0, color=(0.8, 0.8, 0.8, 1.0))
+        g.rect_2d((60.0, -40.0), (40.0, 24.0), color=(0.2, 0.6, 1.0, 1.0),
+                  width=1.0)
+        g.text((-1.5, 1.8, 0.0), "3D", size=0.4, color=(1.0, 0.7, 0.7, 1.0))
+        g.cuboid((0.0, 0.5, 0.0), (0.5, 0.5, 0.5),
+                 color=(0.9, 0.9, 0.2, 1.0))
+        g.sphere((1.6, 0.5, 0.0), 0.5, color=(0.2, 0.9, 0.5, 1.0),
+                 segments=16)
+        g.grid((0.0, 0.0, 0.0), (0.5, 0.5), (6, 4),
+               color=(0.5, 0.5, 0.5, 1.0))
+        g.arrow((-2.0, 0.2, 1.0), (-1.0, 1.2, 0.0),
+                color=(1.0, 0.5, 0.0, 1.0))
+        g.axes((1.5, 1.5, -1.0), length=0.6)
+        g.ray((0.0, 0.0, 1.5), (0.8, 0.4, 0.0), color=(0.7, 0.2, 1.0, 1.0))
+
+    app.add_systems(m["root"].Update, draw)
+    return app
+
+
+def slice_world(m, app_kw, width=200, height=120):
+    """9-slice sprites (one border for all sides, and four borders) and
+    tiled sprites (natural size; scale 1.5 with cropped edge tiles) of two
+    small images, and a flipped sprite anchored at its top left."""
+    sp = m["sprite"]
+    app = _app_2d(m, app_kw, 256, width, height, sp.SpritePlugin())
+    builder = m["tex"].AtlasBuilder(128, 128)
+    ring = np.zeros((12, 12, 4), np.float32)
+    ring[:] = (1.0, 0.0, 0.0, 1.0)
+    ring[4:8, 4:8] = (0.0, 1.0, 0.0, 1.0)
+    ring[0, :] = (1.0, 1.0, 0.0, 1.0)
+    halves = np.zeros((10, 10, 4), np.float32)
+    halves[:, :5] = (1.0, 0.0, 0.0, 1.0)
+    halves[:, 5:] = (0.0, 0.0, 1.0, 0.8)
+    h_ring = builder.add(ring, srgb=False)
+    h_half = builder.add(halves, srgb=False)
+    sp.spawn_sliced(app.world, h_ring, size=(70.0, 40.0), border=4,
+                    pos=(-55.0, 25.0))
+    sp.spawn_sliced(app.world, h_ring, size=(50.0, 36.0),
+                    border=(2.0, 3.0, 4.0, 5.0), pos=(45.0, 25.0), z=11.0,
+                    color=(0.8, 0.9, 1.0, 1.0))
+    sp.spawn_tiled(app.world, h_half, size=(40.0, 20.0), pos=(-55.0, -30.0))
+    sp.spawn_tiled(app.world, h_half, size=(53.0, 37.0), pos=(40.0, -30.0),
+                   scale=1.5, color=(1.0, 1.0, 1.0, 0.9))
+    app.world.spawn(sp.sprite_from_handle(h_half, size=(20.0, 14.0),
+                                          anchor=sp.Anchor.TOP_LEFT,
+                                          flip_x=True),
+                    *m["tf"].transform_bundle(
+                        translation=(-95.0, -45.0, 12.0)))
+    app.insert_resource(m["tex"].TextureAtlas.RESOURCE,
+                        {"data": _build_atlas(builder, app_kw)})
+    return app
+
+
+def carried_world(m, app_kw, width=160, height=96):
+    """The state a world carries across packages: a tilemap chunk with
+    empty cells, a 3-slot digit counter (DigitText, the frame count), an
+    animated sheet sprite (AtlasAnimation, fps 7) and two retained 2D
+    gizmos."""
+    tb = m["tf"].transform_bundle
+    sp, gz, tmap, txt = m["sprite"], m["gizmos"], m["tilemap"], m["text"]
+    builder = m["tex"].AtlasBuilder(512, 160)
+    font = txt.FontAtlas(builder)
+    sheet = np.zeros((8, 32, 4), np.float32)
+    for i, c in enumerate([(0.9, 0.2, 0.2), (0.2, 0.9, 0.2),
+                           (0.2, 0.2, 0.9), (0.9, 0.9, 0.2)]):
+        sheet[:, 8 * i:8 * (i + 1)] = (*c, 1.0)
+    h_sheet = builder.add(sheet, srgb=False)
+    frames = [builder.grid(h_sheet, 4, 1, i) for i in range(4)]
+    tiles = np.random.RandomState(3).randint(-1, 4, (5, 8))
+    tm = tmap.TilemapPlugin()
+    tm.add_chunk(tmap.TilemapChunk(tiles, h_sheet, sheet_cols=4,
+                                   sheet_rows=1, tile_size=12.0,
+                                   origin=(-60.0, -40.0)))
+    app = _app_2d(m, app_kw, 64, width, height, sp.SpritePlugin(),
+                  gz.GizmosPlugin(capacity=64), tm)
+    txt.spawn_digit_counter(app.world, font, num_digits=3,
+                            pos=(-70.0, 45.0), size=10.0)
+    app.add_systems(m["root"].Update,
+                    txt.make_digit_system(font, "frame_count", "count"))
+    app.world.spawn(sp.sprite_from_handle(frames[0], size=(24.0, 24.0)),
+                    sp.AtlasAnimation(fps=7.0, first=0, count=4),
+                    *tb(translation=(40.0, 20.0, 20.0)))
+    app.add_systems(m["root"].Update, sp.make_atlas_animation_system(frames))
+    app.world.spawn(gz.RetainedGizmo(a=(-70.0, -40.0, 0.0),
+                                     b=(70.0, 40.0, 0.0), is3d=False))
+    app.world.spawn(gz.RetainedGizmo(a=(-70.0, 40.0, 0.0),
+                                     b=(0.0, -40.0, 0.0), width=4.0,
+                                     color=(1.0, 0.5, 0.0, 0.7),
+                                     is3d=False))
+    app.insert_resource(m["tex"].TextureAtlas.RESOURCE,
+                        {"data": _build_atlas(builder, app_kw)})
+    return app
