@@ -1,7 +1,9 @@
 """Render core (port of bevy_tpu.render): cameras, meshes, the framebuffer
 plugin, the instanced 3D mesh pass (render/mesh3d.py), deferred lighting
-(render/deferred.py) and the 2D sprite pass (render/sprite.py) over the
-texture atlas (render/texture.py)."""
+(render/deferred.py), the 2D sprite pass (render/sprite.py) over the
+texture atlas (render/texture.py), and the 3D screen passes
+(render/post.py, skybox.py, fog.py, atmosphere.py, environment.py,
+irradiance.py, ssr.py, contact_shadows.py, decal.py, wireframe.py)."""
 
 from bevy_tpu_torch.render.camera import (  # noqa: F401
     Camera2d, OrthographicProjection,

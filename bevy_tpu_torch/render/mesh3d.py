@@ -42,6 +42,15 @@ Three routes, as in the JAX package, each reaching its own kernels:
   an optional viewport scissor. No pass calls it; it is an entry for
   callers with their own batched geometry, as in the JAX package.
 
+`Mesh3dPlugin(motion_vectors=True)` keeps the previous frame's instance
+transforms and view-projection (the "mesh_motion" resource) and writes
+per-object motion vectors (the target's "motion" planes: previous-frame
+pixel offset dy, dx and a validity plane) at the pixels each group-route
+batch wins; TAA and motion blur (render/post.py) read them. The general
+route clears the planes each frame and writes none, as the JAX package's
+general branch. As in the JAX package, only the primary full-window
+camera's view-projection is kept.
+
 Multi-camera rendering and camera viewports are refused on both plugin
 routes (ROADMAP A8). Every other feature of the JAX mesh pass raises
 NotImplementedError naming its route and the ROADMAP item that brings it.
@@ -59,7 +68,7 @@ from bevy_tpu_torch.ecs.component import component, field, resource
 from bevy_tpu_torch.ecs.query import Query, Read, Res, ResMut
 from bevy_tpu_torch.ecs.system import system
 from bevy_tpu_torch.math.affine import TRS, trs_to_mat4
-from bevy_tpu_torch.math.quat import quat_rotate_vec3
+from bevy_tpu_torch.math.quat import quat_rotate_vec3, quat_to_mat3
 from bevy_tpu_torch.ops.raster3d import (
     clip_near_corners, triangle_setup_corners,
 )
@@ -78,7 +87,8 @@ from bevy_tpu_torch.ops.raster3d_visbuf import (
 from bevy_tpu_torch.parallel import as_mesh
 from bevy_tpu_torch.parallel import raster as par_raster
 from bevy_tpu_torch.render.camera import (
-    Camera3d, perspective_infinite_reverse, pick_camera, view_matrix,
+    Camera3d, perspective_infinite_reverse, pick_camera, pixel_world,
+    view_matrix,
 )
 from bevy_tpu_torch.render.mesh import MeshPool
 from bevy_tpu_torch.render.plugin import (
@@ -157,7 +167,11 @@ class AmbientLight:
 
 
 EXPANSION = "mesh_expansion"
+MAX_BLOCKS = 32          # windows a cluster may take before the fallback
 MESH_ATLAS = "mesh_atlas"      # {"data": (AH, AW, 4) f32}, the material atlas
+# {"t", "r", "s": the previous frame's GlobalTransform columns, "vp": its
+# primary camera's view-projection}; only "vp" without motion vectors
+MESH_MOTION = "mesh_motion"
 GROUP_ROUTE = "the group route"
 GENERAL_ROUTE = "the general route"
 
@@ -367,6 +381,46 @@ def directional_light_vec(light, amb):
                       torch.zeros(7, device=rot.device)])
 
 
+def motion_delta(tp, rp, sp, tc, rc, sc):
+    """Per-instance previous-to-current affine D = M_prev M_cur^-1 as 12
+    floats [A row-major 9, b 3], prev_world = A world + b (ref: the
+    previous-frame MeshUniforms of bevy_pbr's motion-vector prepass)."""
+    mp = quat_to_mat3(rp)
+    mc = quat_to_mat3(rc)
+    ratio = sp / torch.clamp(sc, min=1e-12)
+    a = torch.einsum("nij,nj,nkj->nik", mp, ratio, mc)
+    b = tp - torch.einsum("nij,nj->ni", a, tc)
+    return torch.cat([a.reshape(-1, 9), b], -1)
+
+
+def write_motion(target, winner, mot, prev_vp, cur_inv_vp):
+    """Per-object motion vectors at the pixels this batch won: the winner's
+    instance delta (mot (T, 12), by triangle id) takes the pixel's world
+    position to the previous frame's, projected by the previous VP. The
+    target's motion planes [dy, dx, valid] keep their value elsewhere."""
+    depth = target.depth
+    hh, ww = depth.shape
+    ok = winner >= 0
+    dmat = mot[torch.clamp(winner, min=0).long()]            # (H, W, 12)
+    wpx = pixel_world(cur_inv_vp, depth, ww, hh)
+    # a 3x3 affine a pixel, elementwise (a batched matmul of 3x3 blocks
+    # is slow on the card)
+    pw = torch.sum(dmat[..., 0:9].reshape(hh, ww, 3, 3) * wpx[..., None, :],
+                   -1) + dmat[..., 9:12]
+    pc = torch.einsum("ij,hwj->hwi", prev_vp,
+                      torch.cat([pw, torch.ones_like(pw[..., :1])], -1))
+    pcw = torch.where(torch.abs(pc[..., 3]) > 1e-8, pc[..., 3],
+                      torch.ones_like(pc[..., 3]))
+    px_prev = (pc[..., 0] / pcw * 0.5 + 0.5) * ww - 0.5
+    py_prev = (0.5 - pc[..., 1] / pcw * 0.5) * hh - 0.5
+    dev = depth.device
+    ysf = (torch.arange(hh, dtype=torch.float32, device=dev) + 0.5)[:, None]
+    xsf = (torch.arange(ww, dtype=torch.float32, device=dev) + 0.5)[None, :]
+    planes = torch.stack([py_prev - (ysf - 0.5), px_prev - (xsf - 0.5),
+                          torch.ones_like(px_prev)])
+    target.motion = torch.where(ok[None], planes, target.motion)
+
+
 def raster_batched(clip, nrm, batch, inst_ok, mat_inst, light_vec,
                    target, stats, *, width, height, tile_h=16, tile_w=128,
                    max_per_tile=512, cluster_size=12, win_h=32,
@@ -375,7 +429,8 @@ def raster_batched(clip, nrm, batch, inst_ok, mat_inst, light_vec,
                    flat_ok=False, corner_uv=None, uvr_i=None, uvt_i=None,
                    tan_i=None, nmr_i=None, lmr_i=None, dmr_i=None,
                    emr_i=None, mrr_i=None, ocr_i=None, atlas=None, ray=None,
-                   parallax_layers=0):
+                   parallax_layers=0, motd_i=None, prev_vp=None,
+                   cur_inv_vp=None):
     """Visibility-buffer raster of one uniform batch.
 
     clip (Ni, VC, 4) clip-space positions, nrm (Ni, VC, 3) world normals,
@@ -406,6 +461,10 @@ def raster_batched(clip, nrm, batch, inst_ok, mat_inst, light_vec,
       atlas (AH, AW, 4), and ray (3, 3) with parallax_layers > 0 for
       parallax occlusion (see ops/raster3d_visbuf.resolve_shade).
 
+    motd_i (Ni, 12) per-instance motion deltas (motion_delta) with the
+    previous VP prev_vp and this frame's inverse VP cur_inv_vp (4, 4):
+    write_motion then writes target.motion where this batch won.
+
     Profiler spans (torch.profiler): mesh:setup, mesh:windows,
     mesh:splat_B1, mesh:fallback_bin, mesh:stream_B2, mesh:resolve."""
     srec_in = None if depth_only or (flat_ok and corner_uv is None) \
@@ -423,7 +482,12 @@ def raster_batched(clip, nrm, batch, inst_ok, mat_inst, light_vec,
     h_px = aabb[:, 3] - aabb[:, 1]
     half_h = max(win_h // 2, 8)
     classes = ((half_h, h_px <= half_h - 1.0), (win_h, h_px > half_h - 1.0))
-    wbudget = min(window_budget // 2, 4 * k + 64)
+    # a class's window budget: every window its clusters can take (a
+    # cluster of more than MAX_BLOCKS blocks goes to the fallback), so
+    # only `window_budget` caps it. The JAX package's 4 k + 64 drops
+    # windows of a few large clusters at 1280x720 (ROADMAP C3); wherever
+    # it drops none, the windows and the frame are the same.
+    wbudget = min(window_budget // 2, MAX_BLOCKS * k + 64)
     wbudget = (wbudget + 7) // 8 * 8
     depth = target.depth
     winner = torch.full_like(depth, -1.0)
@@ -431,7 +495,8 @@ def raster_batched(clip, nrm, batch, inst_ok, mat_inst, light_vec,
     for class_h, cmask in classes:
         with span("mesh:windows"):
             wins = build_windows(aabb, cl_valid & cmask, win_h=class_h,
-                                 width=width, height=height, budget=wbudget)
+                                 width=width, height=height, budget=wbudget,
+                                 max_blocks=MAX_BLOCKS)
         with span("mesh:splat_B1"):
             depth, winner = fused_eval_composite(
                 depth, winner, rec_rows, wins["owner"], wins["meta"],
@@ -489,6 +554,11 @@ def raster_batched(clip, nrm, batch, inst_ok, mat_inst, light_vec,
             target.gbuffer = resolve_gbuf_flat(win, frec, target.gbuffer)
         else:
             target.color = resolve_flat(win, frec, target.color)
+        if motd_i is not None:
+            ni, per_tri = clip.shape[0], batch["tris"].shape[0]
+            mot = motd_i[:, None, :].expand(ni, per_tri, 12) \
+                .reshape(ni * per_tri, 12)
+            write_motion(target, win, mot, prev_vp, cur_inv_vp)
 
 
 def _setup(clip, nrm, batch, inst_ok, mat_inst, light_vec, width, height,
@@ -832,6 +902,10 @@ def _general_pass(width, height, plugin, *, tile_h, tile_w, pairs_per_tri,
                   exp=Res(EXPANSION),
                   target=ResMut(RenderTarget.RESOURCE),
                   stats=ResMut("render_stats")):
+        if plugin is not None and plugin._motion_vectors:
+            # the JAX general branch writes no vector: every pixel falls
+            # back to camera reprojection
+            target.motion = torch.zeros_like(target.motion)
         _, has_cam, _, vp, visrow = _camera_view(q, cam, width, height)
         gt = q.global_transform
         uni = plugin._uniform if plugin is not None else None
@@ -915,8 +989,15 @@ def _group_pass(width, height, plugin, *, tile_h, tile_w, max_per_tile,
                   amb=Res(AmbientLight),
                   matlas=Res(MESH_ATLAS),
                   target=ResMut(RenderTarget.RESOURCE),
+                  mot=ResMut(MESH_MOTION),
                   stats=ResMut("render_stats")):
+        use_motion = plugin._motion_vectors
+        if use_motion:
+            # only the pixels won this frame carry a vector
+            target.motion = torch.zeros_like(target.motion)
         ci, has_cam, view, vp, visrow = _camera_view(q, cam, width, height)
+        motion = dict(prev_vp=mot.vp, cur_inv_vp=torch.linalg.inv_ex(
+            vp).inverse) if use_motion else {}
         aspect = width / height
         lv = directional_light_vec(light, amb)
         mm = q.mesh_material
@@ -1002,6 +1083,9 @@ def _group_pass(width, height, plugin, *, tile_h, tile_w, max_per_tile,
                 # (the shade records carry it; flat meshes shade isotropic)
                 tex = dict(tan_i=quat_rotate_vec3(gt_r[:, None, :],
                                                   grp["tan"][None]))
+            if use_motion:
+                motion["motd_i"] = motion_delta(
+                    mot.t[rows], mot.r[rows], mot.s[rows], gt_t, gt_r, gt_s)
             raster_batched(
                 clip, nrm, grp, inst_ok, torch.cat(cols, 1), lv, target,
                 stats, width=width, height=height, tile_h=tile_h,
@@ -1009,7 +1093,16 @@ def _group_pass(width, height, plugin, *, tile_h, tile_w, max_per_tile,
                 window_budget=window_budget, eval_tris=eval_tris,
                 visible_budget=visible_budget, deferred=deferred,
                 flat_ok=grp["flat"],
-                uvt_i=mm.uv_transform[rows] if spec["uvt"] else None, **tex)
+                uvt_i=mm.uv_transform[rows] if spec["uvt"] else None,
+                **tex, **motion)
+        if use_motion:
+            # this frame's transforms and the primary camera's VP for the
+            # next frame's deltas (ref: bevy_pbr's previous_transform)
+            gt = q.global_transform
+            mot.t = gt.translation.clone()
+            mot.r = gt.rotation.clone()
+            mot.s = gt.scale.clone()
+            mot.vp = vp
 
     return mesh_pass
 
@@ -1039,7 +1132,10 @@ class Mesh3dPlugin(Plugin):
     without one. parallax_layers: the depth layers of the parallax
     occlusion march, for materials with a depth-map rect and a
     parallax_depth_scale above 0. The general route reads neither, as the
-    JAX package's general branch."""
+    JAX package's general branch.
+
+    motion_vectors: per-object motion vectors into the target's "motion"
+    planes (3, H, W) on the group route (see the module docstring)."""
 
     def __init__(self, pool: MeshPool = None, tile_h=32, tile_w=128,
                  pairs_per_tri=2, max_per_tile=256, backend="auto",
@@ -1054,8 +1150,7 @@ class Mesh3dPlugin(Plugin):
         for on, feature, item in (
                 (occlusion_cull, "two-phase occlusion culling", "A8"),
                 (material_fn is not None, "custom materials", "A8"),
-                (bvh_cull, "the BVH cluster cull", "A8"),
-                (motion_vectors, "motion vectors", "A8")):
+                (bvh_cull, "the BVH cluster cull", "A8")):
             if on:
                 raise _unported(feature, item)
         if shards is not None and self.route == GENERAL_ROUTE:
@@ -1065,6 +1160,7 @@ class Mesh3dPlugin(Plugin):
         # creates and shades (the group route only, as in JAX)
         self.pool = pool or MeshPool()
         self.atlas = atlas
+        self._motion_vectors = bool(motion_vectors)
         self._groups = None
         self._uniform = None
         self._spec = None
@@ -1108,6 +1204,20 @@ class Mesh3dPlugin(Plugin):
                                        device=world.device)
             world.state["res"][MESH_ATLAS] = {"data": data}
             _rebuild_expansion(world, plugin)
+            # the motion state restarts on a structural change, as the JAX
+            # package's (the current transforms, an identity VP)
+            res, dev = world.state["res"], world.device
+            if plugin._motion_vectors:
+                gtf = world.state["comp"]["global_transform"]["f"]
+                res[MESH_MOTION] = {
+                    "t": gtf["translation"].clone(),
+                    "r": gtf["rotation"].clone(),
+                    "s": gtf["scale"].clone(),
+                    "vp": torch.eye(4, device=dev)}
+                res[RenderTarget.RESOURCE]["motion"] = torch.zeros(
+                    (3, rp.height, rp.width), device=dev)
+            else:
+                res[MESH_MOTION] = {"vp": torch.eye(4, device=dev)}
 
         app.add_prepare_hook(finish_pool)
         app.add_systems(Render, make_mesh_pass(rp.width, rp.height,

@@ -37,7 +37,7 @@ QUEUE_SET = "render:queue"
 PASS_SET = "render:pass"        # 3D geometry passes (forward or G-buffer)
 SHADE_SET = "render:shade"      # deferred lighting resolve
 OVERLAY_SET = "render:overlay"  # transparent 2D composition (sprites)
-POST_SET = "render:post"        # after the overlay (the gizmo buffer clear)
+POST_SET = "render:post"        # tonemap / post-process, after the overlay
 
 
 @system(name="clear_render_target")
@@ -48,11 +48,21 @@ def clear_render_target(target=ResMut(RenderTarget.RESOURCE),
 
 
 class RenderPlugin(Plugin):
-    """width/height are static: they size the framebuffer and raster grids."""
+    """width/height are static: they size the framebuffer and raster grids.
 
-    def __init__(self, width: int = 1280, height: int = 720):
-        self.width = width
-        self.height = height
+    ssaa=N renders every pass on an N x N grid of subsamples a pixel
+    (ref: Msaa; ordered-grid supersampling: the same arrays, a bigger
+    grid, no kernel change) and box-resolves in `frame_image`. `width`
+    and `height` are then the grid's, `out_width` / `out_height` the
+    output's. 3D cameras keep their framing (the aspect is the same); 2D
+    cameras should set Camera2d(scale=1/N)."""
+
+    def __init__(self, width: int = 1280, height: int = 720, ssaa: int = 1):
+        self.ssaa = int(ssaa)
+        self.width = width * self.ssaa
+        self.height = height * self.ssaa
+        self.out_width = width
+        self.out_height = height
 
     def build(self, app):
         h, w, dev = self.height, self.width, app.device
@@ -61,7 +71,7 @@ class RenderPlugin(Plugin):
             "color": torch.zeros((4, h, w), dtype=torch.float32, device=dev),
             "depth": torch.zeros((h, w), dtype=torch.float32, device=dev),
             "size": torch.tensor([w, h], dtype=torch.float32, device=dev),
-            "ssaa": torch.tensor(1, dtype=torch.int32, device=dev),
+            "ssaa": torch.tensor(self.ssaa, dtype=torch.int32, device=dev),
         })
         if TextureAtlas.RESOURCE not in app.world.state["res"]:
             # a 1x1 white atlas until the app installs its own
@@ -90,6 +100,12 @@ def add_render_stats(app, *keys):
 
 
 def frame_image(app) -> np.ndarray:
-    """Host readback of the framebuffer as sRGB u8 (H, W, 4)."""
+    """Host readback of the framebuffer as sRGB u8 (H, W, 4); an SSAA
+    grid is box-filtered to the output size first, in linear space."""
     fb = app.world.state["res"][RenderTarget.RESOURCE]["color"]
+    s = next((p.ssaa for p in app._plugins if isinstance(p, RenderPlugin)),
+             1)
+    if s > 1:
+        _, h, w = fb.shape
+        fb = fb.reshape(4, h // s, s, w // s, s).mean((2, 4))
     return image_to_srgb_u8(fb.permute(1, 2, 0)).cpu().numpy()

@@ -171,7 +171,28 @@ source, all started together), then:
 34. runs split_screen_2d at 1280x720 (two cameras), in tiles and in splat
    mode: 20 frames timed, B4 (or B5) once a camera a frame and no other
    kernel, the overflows 0, both calls of one frame bit-equal to plain,
-   5 frames profiled (tiles).
+   5 frames profiled (tiles);
+35. renders the screen-pass worlds of tests/torch_scenes.py small
+   (post_world: SSAO, bloom, depth of field, CAS, FXAA, ACES; aa_world
+   "taa": motion vectors + TAA over 3 frames, "ssaa": a 2 x 2 grid;
+   fog_world: distance + volumetric fog; ssr_world: deferred + SSR) on
+   the card against the JAX package's stored images (tests/goldens/
+   post_f1, taa_f3, ssaa2_f1, fog_f1, ssr_f1, the golden rule) and the
+   port on the CPU, the TAA world's motion planes against
+   taa_f3_motion.npz, B1 and B2 bit-equal and B3 within rtol/atol 1e-5 on
+   every call, the overflows 0;
+36. runs each 3D screen-pass twin (examples/torch_post_processing.py,
+   torch_anti_aliasing.py in taa, smaa and ssaa mode, torch_auto_exposure_
+   demo.py, torch_depth_of_field.py, torch_motion_blur_demo.py,
+   torch_fog_3d.py with and without shadow maps, torch_3d_scene.py with
+   the skybox and the atmosphere, torch_pbr_materials.py,
+   torch_ssr_demo.py with contact shadows, torch_irradiance_volumes.py,
+   torch_decals.py, torch_wireframe.py) at 1280x720: 10 frames timed,
+   its kernels launched (B1 every frame, B3 on the deferred ones, B4 in
+   the wireframe's gizmo pass) and no other, the overflows 0, every B1,
+   B2, B3 and B4 call of one frame against plain, and 3 frames profiled
+   for the kernel launches a frame, the busy share and the time by
+   system.
 
 The shards of phases 15-19 all sit on the one card (a ShardMesh may repeat
 a device): their work runs one shard after another.
@@ -2671,6 +2692,143 @@ def twin_2d_phases(dev, n, smi):
     torch.cuda.synchronize()
 
 
+# the 3D screen-pass twins at 1280x720: (label, module, build keywords,
+# kernels every frame launches)
+SCREEN_TWINS = (
+    ("post_processing", "torch_post_processing", {}, ("B1",)),
+    ("anti_aliasing taa", "torch_anti_aliasing", {"mode": "taa"}, ("B1",)),
+    ("anti_aliasing smaa", "torch_anti_aliasing", {"mode": "smaa"},
+     ("B1",)),
+    ("anti_aliasing ssaa (2560x1440 grid)", "torch_anti_aliasing",
+     {"mode": "ssaa"}, ("B1",)),
+    ("auto_exposure_demo", "torch_auto_exposure_demo", {}, ("B1",)),
+    ("depth_of_field", "torch_depth_of_field", {}, ("B1",)),
+    ("motion_blur_demo", "torch_motion_blur_demo", {}, ("B1",)),
+    ("fog_3d", "torch_fog_3d", {}, ("B1",)),
+    ("fog_3d + shadow maps", "torch_fog_3d", {"shadows": True},
+     ("B1", "B3")),
+    ("3d_scene skybox", "torch_3d_scene", {}, ("B1",)),
+    ("3d_scene atmosphere", "torch_3d_scene", {"atmosphere": True},
+     ("B1",)),
+    ("pbr_materials", "torch_pbr_materials", {}, ("B1", "B3")),
+    ("ssr_demo + contact shadows", "torch_ssr_demo", {"contact": True},
+     ("B1", "B3")),
+    ("irradiance_volumes", "torch_irradiance_volumes", {}, ("B1", "B3")),
+    ("decals", "torch_decals", {}, ("B1", "B3")),
+    ("wireframe", "torch_wireframe", {}, ("B1", "B4")),
+)
+SCREEN_GOLDENS = ("post_f1", "taa_f3", "ssaa2_f1", "fog_f1", "ssr_f1")
+STATS_3D = ("pair_overflow", "tile_overflow", "light_pair_overflow",
+            "gizmo_pair_overflow", "gizmo_tile_overflow")
+
+
+def screen_pass_phases(dev, n, smi):
+    """Phases 35-36: the 3D frame's screen passes (post-processing, motion
+    vectors, SSAA, sky, fog, atmosphere, image-based light, SSR, contact
+    shadows, decals, wireframe) on B1, B2, B3 and B4."""
+    import importlib
+
+    from torch_many_cubes import profile_frames
+    from torch_scenes import (
+        GOLDEN_SCENES, golden_key, port_scene_modules,
+    )
+    from bevy_tpu_torch.render import frame_image
+
+    # -- 35: the small stored frames, the card against the JAX package's
+    #    images and the port on the CPU ---------------------------------
+    pm = port_scene_modules()
+    keys = json.loads((ROOT / "tests" / "goldens" /
+                       "torch_goldens.json").read_text())
+    for name in SCREEN_GOLDENS:
+        if keys.get(name) != golden_key(name):
+            raise AssertionError(f"golden {name}: the scene changed")
+        fn, args = GOLDEN_SCENES[name]
+        with Recorder() as rec:
+            img, app = fn(pm, {"device": dev}, {}, *args)
+        torch.cuda.synchronize()
+        check_golden(img, ROOT / "tests" / "goldens" / f"{name}.png")
+        cpu_img, cpu_app = fn(pm, {"device": "cpu"}, {}, *args)
+        d = np.abs(img - cpu_img).max(-1)
+        log(f"{name} on the card vs the CPU: {float((d > 8).mean()):.4%} "
+            f"of pixels drift > 8 (max channel diff {d.max()}, "
+            f"{int((d > 0).sum())} pixels differ)")
+        if float((d > 8).mean()) >= 0.01:
+            raise AssertionError(f"{name}: the card's frame differs from "
+                                 f"the CPU's")
+        if name == "taa_f3":
+            stored = np.load(ROOT / "tests" / "goldens" /
+                             "taa_f3_motion.npz")["motion"]
+            mo = app.world.state["res"]["render_target"]["motion"].cpu() \
+                .numpy()
+            both = (mo[2] > 0.5) & (stored[2] > 0.5)
+            flip = int(((mo[2] > 0.5) != (stored[2] > 0.5)).sum())
+            err = float(np.abs(mo[:2] - stored[:2])[:, both].max())
+            log(f"taa_f3 motion planes on the card vs the JAX package's: "
+                f"{flip} validity flips, {int(both.sum())} valid in both, "
+                f"max |d| {err:.3g} px")
+            if flip > 12 or err > 1e-3:
+                raise AssertionError("taa_f3 motion planes differ")
+        for kid in ("B1", "B2", "B3"):
+            calls = rec.calls[kid]
+            if not calls:
+                continue
+            errs = [compare(kid, a, kw) for a, kw in calls]
+            worst = max(e[0] for e in errs) if kid == "B3" else max(errs)
+            log(f"{kid} vs plain, {name}: {len(calls)} calls "
+                f"{'within rtol/atol 1e-5' if kid == 'B3' else 'bit-equal'}"
+                f" (max abs err {worst})")
+        check_stats(app.world.state, [k for k in STATS_3D if k in
+                                      app.world.state["res"]["render_stats"]])
+        del app, cpu_app, rec
+
+    # -- 36: each twin at 1280x720 ------------------------------------
+    for label, mod_name, kw, kids in SCREEN_TWINS:
+        build = importlib.import_module(mod_name).build_app
+        app = build(device=dev, **kw)
+        ms, launches, stats, covered = timed_frames(app, n)
+        ours = {k: v for k, v in launches.items() if v}
+        log(f"{label} @1280x720: {ms:.3f} ms/frame over {n} frames (CUDA "
+            f"events; {smi}); kernel launches a frame "
+            f"{ {k: v / n for k, v in ours.items()} }; overflows "
+            f"{ {k: stats[k] for k in STATS_3D if k in stats} }; covered "
+            f"pixels {covered:.3f}")
+        missing = [k for k in kids if launches[k] == 0]
+        if missing or any(launches[k] for k in ("B5", "B6", "B7", "B8")):
+            raise AssertionError(f"{label}: launches {launches}")
+        check_stats(app.world.state, [k for k in STATS_3D if k in stats])
+        if covered < 0.02:
+            raise AssertionError(f"{label}: the frame drew (almost) nothing")
+        with Recorder() as rec:
+            app.update(dt=1 / 60)
+        torch.cuda.synchronize()
+        for kid in ("B1", "B2", "B3", "B4"):
+            calls = rec.calls[kid]
+            if not calls:
+                continue
+            errs = [compare(kid, a, kw_) for a, kw_ in calls]
+            worst = max(e[0] for e in errs) if kid == "B3" else max(errs)
+            log(f"  {kid} vs plain, {label}: {len(calls)} calls of a frame "
+                f"{'within rtol/atol 1e-5' if kid == 'B3' else 'bit-equal'}"
+                f" (max abs err {worst})")
+        del rec
+        state, wall, nk, per_span, _, _ = profile_frames(
+            app.frame_fn(), app.world.state, 3)
+        app.world.state = state
+        busy = sum(per_span.values()) / 1000.0
+        top = sorted(per_span.items(), key=lambda kv: -kv[1])[:6]
+        log(f"  profile, 3 frames: {wall / 3:.3f} ms/frame wall (profiler "
+            f"on), kernels {busy / 3:.3f} ms/frame = {busy / wall:.1%} busy,"
+            f" idle {1 - busy / wall:.1%}, {nk // 3} kernel launches/frame; "
+            f"device ms/frame by innermost span: "
+            + "; ".join(f"{k_} {us / 3000:.3f}" for k_, us in top))
+        img = frame_image(app)
+        if not np.isfinite(img).all():
+            raise AssertionError(f"{label}: image not finite")
+        del app
+        torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+
+
 def main():
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -2942,6 +3100,8 @@ def main():
     shadow_phases(dev, n, smi)
 
     twin_2d_phases(dev, n, smi)
+
+    screen_pass_phases(dev, 10, smi)
 
     log(f"chip_smoke.py ran {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [results[k] for k in KERNELS]}))

@@ -118,14 +118,15 @@ SPANS = ("system:", "mesh:", "lights:", "sprite:", "skin:",
 OUTER = ("shadow:",)       # spans also summed over every kernel inside
 
 
-def profile(step, state, frames):
-    """torch.profiler over `frames` frames. Prints the device busy share
-    of the window (kernel time / CUDA-event wall time), kernel time per
-    span (system:*, mesh:*, lights:*, sprite:*, skin:*, shadow:*, gizmo:*,
-    tilemap:* — each kernel counts toward the innermost span whose
-    GPU-side range holds it, so the ctypes-launched CUDA kernels are
-    attributed too), the shadow:* spans again with every kernel inside
-    them (their mesh:* spans too), and the top kernels."""
+def profile_frames(step, state, frames):
+    """torch.profiler over `frames` frames: returns (state, wall ms of the
+    window by CUDA events with the profiler on, the kernel count, {span:
+    kernel us} by innermost span, {kernel: (calls, us)}, {outer span:
+    (calls, us)} over every kernel inside). Each kernel counts toward the
+    innermost span (system:*, mesh:*, lights:*, sprite:*, skin:*,
+    shadow:*, gizmo:*, tilemap:*) whose GPU-side range holds it, so the
+    ctypes-launched CUDA kernels are attributed too; "(outside spans)"
+    holds the others."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
@@ -138,7 +139,6 @@ def profile(step, state, frames):
             state = step(state)
         end.record()
         torch.cuda.synchronize()
-    wall_ms = start.elapsed_time(end)
     gpu = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     spans = [e for e in gpu if e.name.startswith(SPANS)]
     kernels = [e for e in gpu if not e.name.startswith(SPANS)]
@@ -156,11 +156,22 @@ def profile(step, state, frames):
             inclusive[name] = (n + 1, tot + us)
         n, tot = per_kernel.get(k.name, (0, 0.0))
         per_kernel[k.name] = (n + 1, tot + us)
+    return (state, start.elapsed_time(end), len(kernels), per_span,
+            per_kernel, inclusive)
+
+
+def profile(step, state, frames):
+    """Profiles `frames` frames (profile_frames) and prints the device
+    busy share of the window (kernel time / CUDA-event wall time), kernel
+    time per span, the shadow:* spans again with every kernel inside them
+    (their mesh:* spans too), and the top kernels."""
+    state, wall_ms, n_kernels, per_span, per_kernel, inclusive = \
+        profile_frames(step, state, frames)
     busy_ms = sum(per_span.values()) / 1000.0
     print(f"profile: {frames} frames, {wall_ms / frames:.3f} ms/frame wall "
           f"(CUDA events, profiler on), kernels {busy_ms / frames:.3f} "
           f"ms/frame = {busy_ms / wall_ms:.1%} busy, "
-          f"{len(kernels) // frames} kernel launches/frame")
+          f"{n_kernels // frames} kernel launches/frame")
     print("span (kernels in it, innermost)   device ms/frame")
     for name, us in sorted(per_span.items(), key=lambda kv: -kv[1]):
         print(f"{name:<34}{us / 1000 / frames:>15.3f}")

@@ -12,13 +12,18 @@ bevy_tpu_torch against, into tests/goldens/:
   clips its highlight and barely changes with the tint;
 - shadow_caster_depth.npz: one depth-only raster_batched pass of the
   fixed caster set torch_scenes.caster_pass at 512x512;
+- post_f1.png, taa_f3.png (+ taa_f3_motion.npz, the target's motion
+  planes after the third frame), ssaa2_f1.png, fog_f1.png, ssr_f1.png:
+  the screen-pass worlds of tests/test_torch_motion_ssaa.py
+  (torch_scenes post_world, aa_world "taa" and "ssaa", fog_world,
+  ssr_world);
 - torch_goldens.json: each image's torch_scenes.golden_key (a hash of
   its scene builder and arguments), which the test asserts.
 
 Every JAX plugin runs with backend="pallas_interpret" (its Pallas kernels
 in interpret mode, never the XLA raster "auto" takes on a CPU). Each
 world takes one to three minutes of interpret-mode compiling on a CPU,
-which is why the test reads stored images instead of rendering them.
+which is why the tests read stored images instead of rendering them.
 
     python tests/make_torch_goldens.py              # all
     python tests/make_torch_goldens.py shadow_spot  # some
@@ -83,6 +88,18 @@ def render(name):
     fn, args = torch_scenes.GOLDEN_SCENES[name]
     if name == "shadow_caster_depth":
         np.savez_compressed(GOLDENS / f"{name}.npz", depth=caster_depth())
+    elif name == "taa_f3":
+        img, app = fn(m, {}, JAX_KW, *args)
+        from PIL import Image
+        Image.fromarray(img.astype(np.uint8)).save(GOLDENS / f"{name}.png")
+        motion = app.world.state["res"]["render_target"]["motion"]
+        np.savez_compressed(GOLDENS / f"{name}_motion.npz",
+                            motion=np.asarray(motion, np.float32))
+    elif fn in (torch_scenes.post_world, torch_scenes.aa_world,
+                torch_scenes.fog_world, torch_scenes.ssr_world):
+        img = fn(m, {}, JAX_KW, *args)[0]
+        from PIL import Image
+        Image.fromarray(img.astype(np.uint8)).save(GOLDENS / f"{name}.png")
     elif fn is torch_scenes.material_world:
         color = fn(m, args[0], {}, JAX_KW, *args[1:])[1]
         np.savez_compressed(GOLDENS / f"{name}.npz",

@@ -32,7 +32,12 @@ TWINS = ("torch_many_cubes", "torch_many_lights", "torch_many_sprites",
          "torch_bevymark", "torch_breakout", "torch_3d_shapes",
          "torch_many_foxes", "torch_shadow_showcase", "torch_text2d",
          "torch_many_text2d", "torch_sprite_sheet", "torch_tilemap",
-         "torch_2d_gizmos", "torch_many_gizmos", "torch_split_screen_2d")
+         "torch_2d_gizmos", "torch_many_gizmos", "torch_split_screen_2d",
+         "torch_post_processing", "torch_anti_aliasing",
+         "torch_auto_exposure_demo", "torch_depth_of_field",
+         "torch_motion_blur_demo", "torch_fog_3d", "torch_3d_scene",
+         "torch_pbr_materials", "torch_ssr_demo",
+         "torch_irradiance_volumes", "torch_decals", "torch_wireframe")
 
 
 def _imports(path):

@@ -267,7 +267,12 @@ SCENE_MODULES = {
     "point": ".render.point_shadow", "sprite": ".render.sprite",
     "text": ".render.text", "rich": ".render.rich_text",
     "gizmos": ".render.gizmos", "tilemap": ".render.tilemap",
-    "system": ".ecs.system"}
+    "system": ".ecs.system", "post": ".render.post",
+    "skybox": ".render.skybox", "fog": ".render.fog",
+    "atmo": ".render.atmosphere", "env": ".render.environment",
+    "irr": ".render.irradiance", "ssr": ".render.ssr",
+    "contact": ".render.contact_shadows", "decal": ".render.decal",
+    "wire": ".render.wireframe"}
 
 
 def port_scene_modules():
@@ -525,6 +530,9 @@ def golden_key(name):
     fn, args = GOLDEN_SCENES[name]
     text = "\n".join([name, inspect.getsource(fn), repr(args), repr(DOWN),
                       repr(CASTER_MAP)])
+    if fn in (post_world, aa_world, fog_world, ssr_world):
+        text += "\n".join(["", inspect.getsource(_app_3d),
+                           inspect.getsource(_run)])
     return hashlib.sha256(text.encode()).hexdigest()[:16]
 
 
@@ -702,3 +710,289 @@ def carried_world(m, app_kw, width=160, height=96):
     app.insert_resource(m["tex"].TextureAtlas.RESOURCE,
                         {"data": _build_atlas(builder, app_kw)})
     return app
+
+
+# ---------------------------------------------------------------------------
+# 3D screen-pass worlds (post-processing, motion vectors, SSAA, fog, SSR):
+# each built with the modules `m` (SCENE_MODULES of either package), app_kw
+# for App and jax_kw for the JAX package's Mesh3dPlugin and
+# DeferredLightingPlugin ({"backend": "pallas_interpret"}; {} for the
+# port). Each runs its frames and returns (sRGB image (H, W, 4) int, app).
+
+
+def _app_3d(m, app_kw, jax_kw, capacity, width, height, *plugins,
+            deferred=False, ssaa=1, motion=False):
+    """An App with time, transforms, the render target (`ssaa`), a
+    Mesh3dPlugin (deferred, motion vectors) and `plugins` after it; the
+    mesh plugin is app.mesh_plugin."""
+    m3 = m["m3"]
+    app = m["root"].App(capacity=capacity, **app_kw)
+    kw = dict(jax_kw, deferred=True) if deferred else dict(jax_kw)
+    if motion:
+        kw["motion_vectors"] = True
+    plugin = m3.Mesh3dPlugin(**kw)
+    app.mesh_plugin = plugin
+    return app, plugin, [m["time"].TimePlugin(), m["tf"].TransformPlugin(),
+                         m["render"].RenderPlugin(width=width, height=height,
+                                                  ssaa=ssaa), plugin]
+
+
+def _run(m, app, frames):
+    for _ in range(frames):
+        app.update(dt=1 / 60)
+    return m["plug"].frame_image(app).astype(int), app
+
+
+def post_world(m, app_kw, jax_kw, width=160, height=96):
+    """examples/post_processing.py's scene (24 cubes, three emissive, a
+    directional light) through SSAO, bloom, depth of field, CAS, FXAA and
+    ACES tonemapping; one frame."""
+    m3, tb, pp = m["m3"], m["tf"].transform_bundle, m["post"]
+    app, plugin, plugins = _app_3d(m, app_kw, jax_kw, 64, width, height)
+    cube = plugin.add_mesh(m["mesh"].cuboid(1.0, 1.0, 1.0))
+    app.add_plugins(*plugins, pp.SsaoPlugin(intensity=1.5),
+                    pp.BloomPlugin(threshold=0.8, intensity=0.35),
+                    pp.DepthOfFieldPlugin(focal_distance=6.0,
+                                          focal_range=3.0),
+                    pp.CasPlugin(strength=0.5), pp.FxaaPlugin(),
+                    pp.TonemappingPlugin())
+    for i in range(24):
+        x = (i % 6) - 2.5
+        z = -(i // 6) * 3.0
+        emissive = (2.0, 1.6, 0.4) if i % 7 == 0 else (0.0, 0.0, 0.0)
+        app.world.spawn(
+            m3.Mesh3d(mesh=cube),
+            m3.MeshMaterial(base_color=(0.4 + 0.1 * (i % 5), 0.45, 0.6, 1.0),
+                            emissive=emissive),
+            *tb(translation=(x * 1.6, 0.0, z)))
+    app.world.spawn(m3.DirectionalLight(illuminance=1.2),
+                    *tb(rotation=(-0.35, 0.25, 0.08, 0.9)))
+    app.world.spawn(m["cam"].Camera3d(), *tb(translation=(0, 1.5, 6.0)))
+    return _run(m, app, 1)
+
+
+def aa_world(m, app_kw, jax_kw, mode, width=128, height=72, frames=None):
+    """examples/anti_aliasing.py's scene (a turned cube, a directional
+    light, ambient 0.3). mode "taa": per-object motion vectors and
+    TaaPlugin, the cube and the camera drifting (+1.5 and -0.9 world
+    units a second on every axis), 3 frames; "ssaa": RenderPlugin(ssaa=2),
+    one frame; "fxaa", "cas", "smaa": that filter, one frame."""
+    m3, tb, pp, q = m["m3"], m["tf"].transform_bundle, m["post"], m["root"]
+    app, plugin, plugins = _app_3d(
+        m, app_kw, jax_kw, 8, width, height, ssaa=2 if mode == "ssaa" else 1,
+        motion=mode == "taa")
+    cube = plugin.add_mesh(m["mesh"].cuboid(1.0, 1.0, 1.0))
+    extra = {"taa": pp.TaaPlugin, "fxaa": pp.FxaaPlugin, "cas": pp.CasPlugin,
+             "smaa": pp.SmaaPlugin}.get(mode)
+    app.add_plugins(*plugins, *([extra()] if extra else []))
+    app.insert_resource(m3.AmbientLight(brightness=0.3))
+    app.world.spawn(m["cam"].Camera3d(), *tb(translation=(0, 1, 4)))
+    app.world.spawn(m3.DirectionalLight(),
+                    *tb(rotation=(-0.35, 0.0, 0.0, 0.94)))
+    app.world.spawn(m3.Mesh3d(mesh=cube),
+                    m3.MeshMaterial(base_color=(0.8, 0.7, 0.3, 1.0)),
+                    *tb(rotation=(0.0, 0.31, 0.13, 0.94)))
+    if mode == "taa":
+        tf, Time = m["tf"].Transform, m["time"].Time
+
+        @m["system"].system
+        def drift_mesh(qm=q.Query(tf, q.With(m3.Mesh3d)), time=q.Res(Time)):
+            qm.transform.translation = qm.transform.translation + \
+                time.delta * 1.5
+
+        @m["system"].system
+        def drift_camera(qc=q.Query(tf, q.With(m["cam"].Camera3d)),
+                         time=q.Res(Time)):
+            qc.transform.translation = qc.transform.translation - \
+                time.delta * 0.9
+
+        app.add_systems(m["root"].Update, drift_mesh)
+        app.add_systems(m["root"].Update, drift_camera)
+    return _run(m, app, frames or (3 if mode == "taa" else 1))
+
+
+def fog_world(m, app_kw, jax_kw, width=160, height=96):
+    """examples/fog_3d.py's colonnade (16 cubes and a floor) through
+    distance and volumetric fog; one frame."""
+    m3, tb, fog = m["m3"], m["tf"].transform_bundle, m["fog"]
+    app, plugin, plugins = _app_3d(m, app_kw, jax_kw, 64, width, height)
+    cube = plugin.add_mesh(m["mesh"].cuboid(1.0, 1.0, 1.0))
+    app.add_plugins(*plugins,
+                    fog.DistanceFogPlugin(color=(0.35, 0.4, 0.5),
+                                          density=0.05),
+                    fog.VolumetricFogPlugin(density=0.04))
+    app.insert_resource(m3.AmbientLight(brightness=0.15))
+    for i in range(8):
+        for sx in (-2.5, 2.5):
+            app.world.spawn(
+                m3.Mesh3d(mesh=cube),
+                m3.MeshMaterial(base_color=(0.8, 0.3 + 0.08 * i, 0.2, 1.0)),
+                *tb(translation=(sx, 0.0, -3.0 * i), scale=(1.0, 2.0, 1.0)))
+    app.world.spawn(m3.Mesh3d(mesh=cube),
+                    m3.MeshMaterial(base_color=(0.4, 0.42, 0.45, 1.0)),
+                    *tb(translation=(0.0, -1.6, -12.0),
+                        scale=(30.0, 0.2, 40.0)))
+    app.world.spawn(m3.DirectionalLight(illuminance=1.2),
+                    *tb(rotation=(-0.35, 0.25, 0.0, 0.9)))
+    app.world.spawn(m["cam"].Camera3d(), *tb(
+        translation=(0.0, 1.5, 4.0), rotation=(-0.08, 0.0, 0.0, 0.997)))
+    return _run(m, app, 1)
+
+
+def ssr_world(m, app_kw, jax_kw, width=160, height=96):
+    """examples/ssr_demo.py's scene: a glossy metallic floor reflecting a
+    sphere, deferred, SsrPlugin(steps=24, stride=0.6, thickness=0.8); one
+    frame."""
+    m3, tb = m["m3"], m["tf"].transform_bundle
+    app, plugin, plugins = _app_3d(m, app_kw, jax_kw, 16, width, height,
+                                   deferred=True)
+    floor = plugin.add_mesh(m["mesh"].cuboid(8.0, 0.2, 6.0))
+    sphere = plugin.add_mesh(m["mesh"].uv_sphere(0.7, 20, 14))
+    app.add_plugins(*plugins, m["deferred"].DeferredLightingPlugin(**jax_kw),
+                    m["ssr"].SsrPlugin(steps=24, stride=0.6, thickness=0.8))
+    app.insert_resource(m3.AmbientLight(brightness=0.25))
+    app.world.spawn(m["cam"].Camera3d(),
+                    *tb(translation=(0, 1.6, 5),
+                        rotation=(-0.13, 0.0, 0.0, 0.991)))
+    app.world.spawn(m3.DirectionalLight(),
+                    *tb(rotation=(-0.4, 0.2, 0.0, 0.9)))
+    app.world.spawn(m3.Mesh3d(mesh=floor),
+                    m3.MeshMaterial(base_color=(0.35, 0.4, 0.45, 1.0),
+                                    metallic=0.9, perceptual_roughness=0.15),
+                    *tb(translation=(0.0, -0.6, 0.0)))
+    app.world.spawn(m3.Mesh3d(mesh=sphere),
+                    m3.MeshMaterial(base_color=(0.9, 0.4, 0.2, 1.0)),
+                    *tb(translation=(0.0, 0.5, 0.0)))
+    return _run(m, app, 1)
+
+
+GOLDEN_SCENES.update({
+    "post_f1": (post_world, ()),
+    "taa_f3": (aa_world, ("taa",)),
+    "ssaa2_f1": (aa_world, ("ssaa",)),
+    "fog_f1": (fog_world, ()),
+    "ssr_f1": (ssr_world, ()),
+})
+
+
+# ---------------------------------------------------------------------------
+# Screen-pass inputs (numpy): the planes a screen pass reads, made from a
+# seed, for the per-pass tests of both packages.
+
+SCREEN_H, SCREEN_W = 50, 66      # not multiples of 4: bloom pads its tail
+SCREEN_NEAR = 0.1
+
+
+def screen_camera(frame=0):
+    """Camera rows (2 rows, the first masked off): a camera at (0.2, 1.0,
+    3.0) pitched down a little, drifting (+0.05, 0, -0.03) and turning a
+    little each `frame`."""
+    a = 0.06 + 0.01 * frame
+    rot = np.array([-np.sin(a), 0.02 * frame, 0.0, np.cos(a)], np.float32)
+    rot /= np.linalg.norm(rot)
+    t = np.array([0.2 + 0.05 * frame, 1.0, 3.0 - 0.03 * frame], np.float32)
+    return dict(
+        mask=np.array([False, True]),
+        translation=np.stack([np.array([9.0, -3.0, 1.0], np.float32), t]),
+        rotation=np.stack([np.array([0.3, 0.1, 0.0, 0.95], np.float32),
+                           rot]).astype(np.float32),
+        scale=np.ones((2, 3), np.float32),
+        fov=np.array([1.2, np.pi / 4], np.float32),
+        near=np.array([0.5, SCREEN_NEAR], np.float32))
+
+
+def screen_light():
+    """Directional light rows (2 rows, the first masked off)."""
+    rot = np.array([-0.35, 0.25, 0.08, 0.9], np.float32)
+    rot /= np.linalg.norm(rot)
+    return dict(mask=np.array([False, True]),
+                rotation=np.stack([np.array([0.0, 0.0, 0.0, 1.0],
+                                            np.float32), rot]),
+                color=np.array([[0.0, 0.0, 1.0], [1.0, 0.95, 0.9]],
+                               np.float32),
+                illuminance=np.array([5.0, 1.3], np.float32))
+
+
+def screen_planes(seed, h=SCREEN_H, w=SCREEN_W, gplanes=19):
+    """A view of a floor (view-space y = -1) and a sphere, sky above the
+    horizon: (colour (4, H, W) HDR, reverse-z depth (H, W) with ids in its
+    low 7 mantissa bits, 0 on the sky, G-buffer (gplanes, H, W)) as f32
+    numpy. Colour: flat per object with a checker on the floor, noise and
+    a few bright (> 1) pixels; G-buffer: albedo, unit normals, emissive,
+    metallic, roughness (some below 0.4), clearcoat, anisotropy,
+    reflectance and, with 22 planes, a specular tint."""
+    rng = np.random.RandomState(seed)
+    f = 1.0 / np.tan(np.pi / 8)
+    xs = ((np.arange(w) + 0.5) / w * 2 - 1) * (w / h) / f
+    ys = (1 - (np.arange(h) + 0.5) / h * 2) / f
+    dx = np.broadcast_to(xs[None, :], (h, w))
+    dy = np.broadcast_to(ys[:, None], (h, w))
+    zv = np.full((h, w), np.inf)
+    obj = np.zeros((h, w), np.int32)              # 0 sky, 1 floor, 2 ball
+    floor = dy < -0.02
+    zv[floor] = np.minimum(1.0 / -dy[floor], 60.0)
+    obj[floor] = 1
+    # the sphere at view (0.3, -0.3, -3), radius 0.7: |t d - c|^2 = r^2
+    c = np.array([0.3, -0.3, -3.0])
+    d = np.stack([dx, dy, -np.ones_like(dx)], -1)
+    a_ = np.sum(d * d, -1)
+    b_ = -2 * np.sum(d * c, -1)
+    c_ = c @ c - 0.49
+    disc = b_ * b_ - 4 * a_ * c_
+    hit = disc > 0
+    t = np.where(hit, (-b_ - np.sqrt(np.maximum(disc, 0))) / (2 * a_),
+                 np.inf)
+    ball = hit & (t < zv)
+    zv[ball] = t[ball]
+    obj[ball] = 2
+    depth = np.where(obj > 0, SCREEN_NEAR / zv, 0.0).astype(np.float32)
+    ids = (np.arange(h)[:, None] * 7 + np.arange(w)[None, :] * 3) % 128
+    bits = depth.view(np.uint32)
+    depth = np.where(obj > 0, (bits & ~np.uint32(127)) | ids.astype(
+        np.uint32), bits).view(np.float32)
+    base = np.array([[0.35, 0.55, 0.85], [0.6, 0.6, 0.55],
+                     [0.9, 0.35, 0.2]], np.float32)
+    chk = ((np.arange(h)[:, None] // 6 + np.arange(w)[None, :] // 6) % 2)
+    rgb = base[obj] * np.where((obj == 1) & (chk == 1), 0.4, 1.0)[..., None]
+    rgb = rgb + rng.normal(0, 0.02, rgb.shape)
+    bright = rng.uniform(size=(h, w)) < 0.03
+    rgb[bright] *= 4.0
+    color = np.concatenate([np.clip(rgb, 0, None).transpose(2, 0, 1),
+                            np.ones((1, h, w))]).astype(np.float32)
+    g = np.zeros((gplanes, h, w), np.float32)
+    g[0:3] = (base[obj] * 0.9 + rng.uniform(0, 0.1, (h, w, 3))) \
+        .transpose(2, 0, 1)
+    g[3] = 1.0
+    p = d * zv[..., None]
+    nrm = np.where((obj == 2)[..., None], p - c, [0.0, 1.0, 0.0])
+    nrm = nrm + rng.normal(0, 0.05, nrm.shape)
+    nrm /= np.linalg.norm(nrm, axis=-1, keepdims=True)
+    g[4:7] = nrm.transpose(2, 0, 1)
+    g[7:10] = rng.uniform(0, 0.05, (3, h, w))
+    g[10] = np.where(obj == 1, 0.9, rng.uniform(0, 1, (h, w)))
+    g[11] = np.where(obj == 1, rng.uniform(0.05, 0.3, (h, w)),
+                     rng.uniform(0.2, 1.0, (h, w)))
+    g[12:14] = rng.uniform(0, 0.3, (2, h, w))
+    g[18] = 0.5
+    if gplanes >= 22:
+        g[19:22] = rng.uniform(0.3, 1.0, (3, h, w))
+    g[:, obj == 0] = 0.0
+    return color, depth, g
+
+
+def screen_views(asarray, frame=0):
+    """The camera and light query views of screen_camera(frame) and
+    screen_light() as namespaces of `asarray` arrays (jnp.asarray or a
+    torch constructor): what a screen pass's system reads."""
+    from types import SimpleNamespace as ns
+    c, li = screen_camera(frame), screen_light()
+    cam = ns(mask=asarray(c["mask"]),
+             global_transform=ns(translation=asarray(c["translation"]),
+                                 rotation=asarray(c["rotation"]),
+                                 scale=asarray(c["scale"])),
+             camera3d=ns(fov=asarray(c["fov"]), near=asarray(c["near"])))
+    light = ns(mask=asarray(li["mask"]),
+               global_transform=ns(rotation=asarray(li["rotation"])),
+               directional_light=ns(color=asarray(li["color"]),
+                                    illuminance=asarray(li["illuminance"])))
+    return cam, light
