@@ -53,6 +53,15 @@
 //   depth, that slot is below it; if not, nothing writes. Without this
 //   the padding slot, inside its zero edges everywhere, would keep every
 //   tile of every window.
+// - The scissor (a template flag, as in B2, B7 and B8; a camera's viewport
+//   rect [x0, x1) x [y0, y1), four floats in device memory, read once a
+//   CTA): a pixel writes only where its centre passes the reference's test
+//   px >= x0 & px < x1 & py >= y0 & py < y1. A block or tile is dropped
+//   whole where no pixel centre of it can pass: its last centre column
+//   lies left of x0 or its first at or right of x1 (rows alike); small
+//   integers plus 0.5 are exact floats, so the test reads the walk's own
+//   centres. A NaN bound drops everything, as the per-pixel test writes
+//   nothing.
 //   raster3d_splat.window_px_kept replays these decisions in PyTorch.
 // - The walk visits only the kept tiles, one pixel a lane, and only each
 //   tile's kept slots, in slot order; per pixel it is the reference's test
@@ -88,6 +97,14 @@ __device__ __forceinline__ float edge(float a, float b, float c, float px,
   return __fadd_rn(__fadd_rn(__fmul_rn(a, px), c), __fmul_rn(b, py));
 }
 
+// true iff some pixel centre of the w x h rectangle at (x0, y0) can pass
+// the scissor test s (its nearest centres to the rect, exact in f32)
+__device__ __forceinline__ bool meets(const float* s, int x0, int y0, int w,
+                                      int h) {
+  return (float)(x0 + w - 1) + 0.5f >= s[0] && (float)x0 + 0.5f < s[2] &&
+         (float)(y0 + h - 1) + 0.5f >= s[1] && (float)y0 + 0.5f < s[3];
+}
+
 // true iff some edge of slot d reads > 0 at every pixel centre of the
 // w x h rectangle at (x0, y0): each edge is tested at its least corner
 template <int NEDGE>
@@ -120,16 +137,23 @@ struct Layout {
 };
 
 // GROUPS: ntri > 32, the slots in groups of 32 (else one group, the whole
-// record row, which the compiler keeps to the registers of a single pass)
-template <int NEDGE, bool GROUPS>
+// record row, which the compiler keeps to the registers of a single pass);
+// SCISSOR: pixels outside the rect `sciss` neither test nor write
+template <int NEDGE, bool GROUPS, bool SCISSOR>
 __global__ void __launch_bounds__(THREADS)
 splat_windows(const float* __restrict__ depth,
               const float* __restrict__ rec_rows, int row_len,
               const int* __restrict__ owner, const int* __restrict__ meta,
               const unsigned char* __restrict__ wvalid, int nwin, int ntri,
               int win_h, int H, int W, long long* __restrict__ key,
-              const int* __restrict__ neg) {
+              const int* __restrict__ neg,
+              const float* __restrict__ sciss) {
   constexpr int STRIDE = 3 * NEDGE + 4;
+  float sc[4] = {0.f, 0.f, 0.f, 0.f};
+  if constexpr (SCISSOR) {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) sc[k] = sciss[k];
+  }
   extern __shared__ float4 smem4[];
   const Layout lay(ntri, NEDGE, win_h);
   const int lane = threadIdx.x & 31, warps = blockDim.x >> 5;
@@ -170,6 +194,7 @@ splat_windows(const float* __restrict__ depth,
         const int bx = x0 + (blk % BLKS_X) * BLK_W;
         const int by = y0 + (blk / BLKS_X) * BLK_H;
         if (blk < lay.nblk && (live >> sl & 1u) && bx < W && by < H &&
+            (!SCISSOR || meets(sc, bx, by, BLK_W, BLK_H)) &&
             !outside<NEDGE>(grp + sl * STRIDE, bx, by, BLK_W, BLK_H))
           atomicOr(&bmask[blk], 1u << sl);
       }
@@ -196,7 +221,8 @@ splat_windows(const float* __restrict__ depth,
           t = tr * TILES_X + (blk % BLKS_X) * 4 + j % 4;
           const int tx = x0 + (t % TILES_X) * TILE_W;
           const int ty = y0 + tr * TILE_H;
-          if (tr < tile_rows && tx < W && ty < H) {
+          if (tr < tile_rows && tx < W && ty < H &&
+              (!SCISSOR || meets(sc, tx, ty, TILE_W, TILE_H))) {
             for (unsigned left = bmask[blk]; left; left &= left - 1) {
               const int sl = __ffs(left) - 1;
               if (!outside<NEDGE>(grp + sl * STRIDE, tx, ty, TILE_W, TILE_H))
@@ -224,6 +250,9 @@ splat_windows(const float* __restrict__ depth,
         const int y = y0 + r;
         if (r >= win_h || x >= W || y >= H) continue;
         const float px = (float)x + 0.5f, py = (float)y + 0.5f;
+        if (SCISSOR &&
+            !(px >= sc[0] && px < sc[2] && py >= sc[1] && py < sc[3]))
+          continue;
         float best = __int_as_float(0xff800000);  // -inf
         int best_s = -1;
         for (unsigned left = mask; left; left &= left - 1) {
@@ -300,7 +329,8 @@ extern "C" const char* bt_error_string(int err) {
 // depth, winner: (H, W) f32 inputs; rec_rows (ncl, row_len) f32; owner,
 // meta (nwin,) int32; wvalid (nwin,) bool, a valid prefix; key (H * W + 1)
 // int64 scratch (the last element holds the negative-depth flag); dep_out,
-// win_out (H, W) f32 outputs. Returns cudaErrorInvalidValue, launching
+// win_out (H, W) f32 outputs; scissor (4,) f32 [x0, y0, x1, y1) in device
+// memory, or null for none. Returns cudaErrorInvalidValue, launching
 // nothing, when one window's shared memory exceeds what a CTA may opt
 // into; else cudaGetLastError().
 extern "C" int bt_splat_fused(const float* depth, const float* winner,
@@ -309,7 +339,7 @@ extern "C" int bt_splat_fused(const float* depth, const float* winner,
                               const unsigned char* wvalid, int nwin, int ntri,
                               int nedge, int win_h, int H, int W,
                               long long* key, float* dep_out, float* win_out,
-                              void* stream) {
+                              const float* scissor, void* stream) {
   int dev = 0, sms = 0, optin = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
@@ -328,11 +358,14 @@ extern "C" int bt_splat_fused(const float* depth, const float* winner,
   if (nwin > 0) {
     // as many CTAs as fit on the card at once; the grid-stride loop takes
     // the rest (a second wave would leave its SMs the last windows alone)
-    auto kernel = nedge == 4
-                      ? (ntri > 32 ? splat_windows<4, true>
-                                   : splat_windows<4, false>)
-                      : (ntri > 32 ? splat_windows<3, true>
-                                   : splat_windows<3, false>);
+    using Kernel = decltype(&splat_windows<3, false, false>);
+    static const Kernel kernels[2][2][2] = {
+        {{splat_windows<3, false, false>, splat_windows<3, false, true>},
+         {splat_windows<3, true, false>, splat_windows<3, true, true>}},
+        {{splat_windows<4, false, false>, splat_windows<4, false, true>},
+         {splat_windows<4, true, false>, splat_windows<4, true, true>}}};
+    const Kernel kernel =
+        kernels[nedge == 4][ntri > 32][scissor != nullptr];
     if (smem > 48 * 1024)  // past the default: opt in
       cudaFuncSetAttribute(kernel,
                            cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -343,7 +376,7 @@ extern "C" int bt_splat_fused(const float* depth, const float* winner,
     const int fit = (per_sm > 0 ? per_sm : 1) * sms;
     kernel<<<need < fit ? need : fit, warps * 32, smem, st>>>(
         depth, rec_rows, row_len, owner, meta, wvalid, nwin, ntri, win_h, H, W,
-        key, neg);
+        key, neg, scissor);
   }
   const int stride = 3 * nedge + 4;
   decode_keys<<<pix_blocks, THREADS, 0, st>>>(

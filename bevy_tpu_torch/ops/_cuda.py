@@ -38,7 +38,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     "bt_splat_fused": [_P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                       _P, _P, _P, _P],
+                       _P, _P, _P, _P, _P],
     "bt_stream_raster": [_P, _I, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I,
                          _P, _P, _P, _I, _P, _P, _P],
     "bt_deferred_shade": [_P, _I, _P, _P, _P, _I, _I, _P, _P, _I, _I, _I,

@@ -40,7 +40,7 @@ import torch
 
 from bevy_tpu_torch.ops import _cuda
 from bevy_tpu_torch.ops.binning import expand_runs
-from bevy_tpu_torch.ops.raster3d_visbuf import ZREC
+from bevy_tpu_torch.ops.raster3d_visbuf import ZREC, _scissor_vec
 
 WIN_W = 128          # window width = one 128-px framebuffer column block
 REC_FIELDS = 13      # triangle record: 3 edge planes (9) + z plane (3) + id
@@ -297,6 +297,139 @@ def eval_windows(zrec, cs: int, owner, meta, wvalid, *, win_h,
 
 
 # ----------------------------------------------------------------------
+# Weighted-blended OIT and the occlusion hi-z (plain PyTorch: the JAX
+# package's are XLA, no kernel)
+
+def eval_oit_windows(zrec, frec, cs: int, owner, meta, wvalid, depth, *,
+                     win_h, eval_tris=None, chunk=2048):
+    """Weighted-blended OIT window evaluation (ref: bevy_core_pipeline's
+    OIT, `src/oit/`; McGuire-Bavoil weighted blended transparency, order
+    independent). zrec (T, ZREC) packed planes; frec (T, 8) flat lit rgb +
+    alpha (slot 3); depth (H, W) the opaque reverse-z buffer: a fragment
+    counts only where it is nearer. Returns (B, 5, win_h, 128): per window
+    [w*r, w*g, w*b, w, revealage], every window of the budget evaluated
+    (wvalid is accumulate_oit's to read)."""
+    del wvalid
+    ncl = zrec.shape[0] // cs
+    ntri = cs if eval_tris is None else min(eval_tris, cs)
+    recs = zrec.reshape(ncl, cs, ZREC)[:, :ntri]
+    cols = frec.reshape(ncl, cs, 8)[:, :ntri, :4]
+    h, w = depth.shape
+    ncols = (w + WIN_W - 1) // WIN_W
+    dep_pad = torch.nn.functional.pad(depth, (0, ncols * WIN_W - w, 0, win_h),
+                                      value=3.4e38)
+    dev = depth.device
+    lane = torch.arange(WIN_W, dtype=torch.int32, device=dev)
+    row = torch.arange(win_h, dtype=torch.int32, device=dev)
+    b = owner.shape[0]
+    out = torch.empty((b, 5, win_h, WIN_W), dtype=torch.float32, device=dev)
+    for start in range(0, b, chunk):
+        o = owner[start:start + chunk].long()
+        m = meta[start:start + chunk]
+        rec, col4 = recs[o], cols[o]
+        colk, wy = m // 2048, m % 2048
+        xs = colk[:, None, None] * WIN_W + lane[None, None, :]
+        ys = wy[:, None, None] + row[None, :, None]
+        px = xs.to(torch.float32) + 0.5                    # (b, 1, 128)
+        py = ys.to(torch.float32) + 0.5                    # (b, win_h, 1)
+        dep_w = dep_pad[ys.long(), xs.long()]              # (b, win_h, 128)
+        acc = torch.zeros((o.shape[0], 4, win_h, WIN_W), dtype=torch.float32,
+                          device=dev)
+        reveal = torch.ones((o.shape[0], win_h, WIN_W), dtype=torch.float32,
+                            device=dev)
+        for s in range(ntri):
+            def d(k, _s=s):
+                return rec[:, _s, k][:, None, None]
+            emax = torch.maximum(torch.maximum(
+                d(0) * px + d(1) * py + d(2), d(3) * px + d(4) * py + d(5)),
+                d(6) * px + d(7) * py + d(8))
+            z = d(9) * px + d(10) * py + d(11)
+            cover = (torch.maximum(emax, -z) < 0) & (z > dep_w)
+            a = col4[:, s, 3][:, None, None] * cover.to(torch.float32)
+            wz = a * (0.1 + z * z * 10.0)     # nearer (larger z) counts more
+            acc = acc + torch.cat(
+                [col4[:, s, 0:3, None, None] * wz[:, None], wz[:, None]], 1)
+            reveal = reveal * (1.0 - a)
+        out[start:start + chunk] = torch.cat([acc, reveal[:, None]], 1)
+    return out
+
+
+def accumulate_oit(oit, windows, meta, wvalid):
+    """Merge OIT windows into the (5, H, W) accumulation buffer: the
+    weighted sums add, the revealage multiplies (the JAX package merges
+    the valid windows one after another; here one index_add_ and one
+    product scatter, so the sums' order differs by rounding). Windows past
+    the valid prefix are not read."""
+    _, h, w = oit.shape
+    ncols = (w + WIN_W - 1) // WIN_W
+    wp = ncols * WIN_W
+    b, _, win_h, _ = windows.shape
+    dev = oit.device
+    pad = torch.nn.functional.pad(oit, (0, wp - w, 0, win_h))
+    lane = torch.arange(WIN_W, device=dev)
+    row = torch.arange(win_h, device=dev)
+    colk, y0 = (meta // 2048).long(), (meta % 2048).long()
+    idx = (y0[:, None, None] + row[None, :, None]) * wp + \
+        colk[:, None, None] * WIN_W + lane[None, None, :]     # (B, win_h, 128)
+    idx = torch.where(wvalid[:, None, None], idx,
+                      pad.shape[1] * wp)                     # a spare slot
+    flat = torch.cat([pad.reshape(5, -1), pad.new_zeros((5, 1))], 1)
+    sums = flat[:4].index_add(1, idx.reshape(-1),
+                              windows[:, :4].permute(1, 0, 2, 3)
+                              .reshape(4, -1))
+    rev = flat[4].scatter_reduce(0, idx.reshape(-1),
+                                 windows[:, 4].reshape(-1), "prod")
+    out = torch.cat([sums, rev[None]], 0)[:, :-1]
+    return out.reshape(5, h + win_h, wp)[:, :h, :w]
+
+
+def oit_blend(color, oit):
+    """Composite the OIT accumulation over the opaque colour (ref: the OIT
+    resolve pass). color (4, H, W); oit (5, H, W)."""
+    reveal = torch.clamp(oit[4], 0.0, 1.0)
+    avg = oit[:3] / torch.clamp(oit[3], min=1e-6)[None]
+    rgb = avg * (1.0 - reveal)[None] + color[:3] * reveal[None]
+    return torch.cat([rgb, color[3:4]], 0)
+
+
+def coarse_min_depth(depth, cell_h=16, cell_w=64):
+    """Min-pool the reverse-z depth to a coarse grid: the hi-z level the
+    occlusion test reads (ref: the downsample-depth pass of
+    bevy_render/src/occlusion_culling and meshlet's hi-z). Padding is 0."""
+    h, w = depth.shape
+    hp = (h + cell_h - 1) // cell_h * cell_h
+    wp = (w + cell_w - 1) // cell_w * cell_w
+    if (hp, wp) != (h, w):
+        depth = torch.nn.functional.pad(depth, (0, wp - w, 0, hp - h))
+    return depth.reshape(hp // cell_h, cell_h, wp // cell_w, cell_w) \
+        .amin((1, 3))
+
+
+def occlusion_test(aabb, zmax, coarse, cell_h=16, cell_w=64, max_span=4):
+    """Conservative per-cluster occlusion: occluded iff every coarse cell
+    the screen box touches holds a depth nearer than the cluster's nearest
+    bound `zmax`; boxes spanning more than max_span cells on an axis are
+    kept. Returns (NCL,) bool."""
+    nch, ncw = coarse.shape
+    x0, y0, x1, y1 = aabb[:, 0], aabb[:, 1], aabb[:, 2], aabb[:, 3]
+    cx0 = torch.floor(x0 / cell_w).to(torch.int32)
+    cx1 = torch.floor((x1 - 1e-3) / cell_w).to(torch.int32)
+    cy0 = torch.floor(y0 / cell_h).to(torch.int32)
+    cy1 = torch.floor((y1 - 1e-3) / cell_h).to(torch.int32)
+    spanx, spany = cx1 - cx0 + 1, cy1 - cy0 + 1
+    small = (spanx <= max_span) & (spany <= max_span)
+    m = torch.full(zmax.shape, 3.4e38, dtype=torch.float32,
+                   device=zmax.device)
+    for dy in range(max_span):
+        for dx in range(max_span):
+            cell = coarse[torch.clamp(cy0 + dy, 0, nch - 1).long(),
+                          torch.clamp(cx0 + dx, 0, ncw - 1).long()]
+            use = (dy < spany) & (dx < spanx)
+            m = torch.minimum(m, torch.where(use, cell, 3.4e38))
+    return small & (zmax < m)
+
+
+# ----------------------------------------------------------------------
 # B1: fused window evaluate + composite
 
 def order_key(f):
@@ -310,15 +443,18 @@ def _key_float(hi):
     return torch.where(b >= 0, b, b ^ 0x7FFFFFFF).view(torch.float32)
 
 
-def _fused_plain(depth, winner, rec_rows, owner, meta, wvalid, *, win_h,
-                 ntri, nedge, chunk=4096):
+def _fused_plain(depth, winner, rec_rows, owner, meta, wvalid, scissor=None,
+                 *, win_h, ntri, nedge, chunk=4096):
     """Plain PyTorch version of B1: per valid window, the first slot
     holding the maximal z that passes the edge test, then a scatter-max of
     the (z, -seq) keys over those windows, then the decode. Only the valid
     windows are walked (an invalid one writes nothing); seq stays the
-    window's index in the budget."""
+    window's index in the budget. With a scissor rect only pixels whose
+    centre lies in [x0, x1) x [y0, y1) write (the reference tests the rect
+    at each slot; it is the same test at every slot of a pixel)."""
     H, W = depth.shape
     dev = depth.device
+    sc = None if scissor is None else _scissor_vec(scissor, dev)
     stride = 3 * nedge + 4
     flat = rec_rows.reshape(rec_rows.shape[0], -1)
     d0 = depth.reshape(-1)
@@ -352,6 +488,9 @@ def _fused_plain(depth, winner, rec_rows, owner, meta, wvalid, *, win_h,
             best = torch.where(ok, z, best)
             best_s = torch.where(ok, s, best_s)
         inb = (x < W) & (y < H)
+        if sc is not None:
+            inb = inb & (px >= sc[0]) & (px < sc[2]) & (py >= sc[1]) & \
+                (py < sc[3])
         p = (y.clamp(max=H - 1) * W + x.clamp(max=W - 1)).to(torch.int64)
         take = inb & (best_s >= 0) & (best > d0[p])
         seq = wi.to(torch.int64)[:, None, None] * ntri + best_s
@@ -369,7 +508,8 @@ def _fused_plain(depth, winner, rec_rows, owner, meta, wvalid, *, win_h,
     return dep.reshape(H, W), win.reshape(H, W)
 
 
-def window_px_kept(rec_rows, meta, depth, *, win_h, ntri, nedge):
+def window_px_kept(rec_rows, meta, depth, scissor=None, *, win_h, ntri,
+                   nedge):
     """(B, TILES, ntri) bool: which (8 x 4-pixel tile, record slot) pairs
     of each window kernel B1 evaluates, in plain PyTorch (for tests and
     measurement; the plain version walks every pixel of every window).
@@ -390,7 +530,10 @@ def window_px_kept(rec_rows, meta, depth, *, win_h, ntri, nedge):
     then reads > 0 (or NaN) at every pixel of the tile: the slot is inside
     at none of them. A zero depth plane reads z = 0 <= depth everywhere,
     and such a slot neither writes nor changes which slot of the window
-    writes (csrc/splat_raster.cu)."""
+    writes (csrc/splat_raster.cu). With a scissor rect [x0, x1) x [y0,
+    y1), a tile is also dropped when no pixel centre of it, or of its
+    32 x 16 block, can pass the rect: its last centre column below x0 or
+    its first at or past x1 (rows alike)."""
     dev = rec_rows.device
     height, width = depth.shape
     b = meta.shape[0]
@@ -406,6 +549,14 @@ def window_px_kept(rec_rows, meta, depth, *, win_h, ntri, nedge):
     rec = rec_rows.reshape(b, -1)[:, :ntri * stride].reshape(b, ntri,
                                                              stride)
     out = ~((tx < width) & (ty < height))[:, :, None]      # (B, TILES, 1)
+    if scissor is not None:
+        sc = _scissor_vec(scissor, dev)
+        for x, y, w, h in ((bx, by, 32, 16), (tx, ty, 8, 4)):
+            meets = ((x + w - 1).to(torch.float32) + 0.5 >= sc[0]) & \
+                (x.to(torch.float32) + 0.5 < sc[2]) & \
+                ((y + h - 1).to(torch.float32) + 0.5 >= sc[1]) & \
+                (y.to(torch.float32) + 0.5 < sc[3])
+            out = out | ~meets[:, :, None]
     for j in range(nedge):
         a, bb, c = (rec[:, None, :, 3 * j + k] for k in range(3))
         for x, y, w, h in ((bx, by, 32, 16), (tx, ty, 8, 4)):
@@ -420,8 +571,8 @@ def window_px_kept(rec_rows, meta, depth, *, win_h, ntri, nedge):
     return ~out
 
 
-def fused_eval_composite(depth, winner, rec_rows, owner, meta, wvalid, *,
-                         win_h=32, ntri=8, nedge=3):
+def fused_eval_composite(depth, winner, rec_rows, owner, meta, wvalid,
+                         scissor=None, *, win_h=32, ntri=8, nedge=3):
     """Evaluate + merge windows (kernel B1; replaces the JAX package's
     `fused_eval_composite` → `_fused_kernel`).
 
@@ -431,7 +582,11 @@ def fused_eval_composite(depth, winner, rec_rows, owner, meta, wvalid, *,
     valid prefix, as build_windows gives it: the kernel stops at the first
     invalid window). Per pixel of each window and record slot: edges
     `e = (a*px + c) + b*py`, inside if every e <= 0; `z = (za*px + zc) +
-    zb*py`; a write where z beats the depth (strict).
+    zb*py`; a write where z beats the depth (strict). scissor: None, or
+    the pixel rect (x0, y0, x1, y1) (floats, 0-d tensors or a (4,) tensor
+    on the device: a camera's viewport): a pixel whose centre lies
+    outside [x0, x1) x [y0, y1) is not written (the reference's
+    `use_scissor` instantiation).
     Returns new (depth, winner) — winner holds the record's id field
     (global tri id as f32). CPU tensors run the plain PyTorch version;
     CUDA tensors launch `csrc/splat_raster.cu`, which evaluates only the
@@ -446,7 +601,7 @@ def fused_eval_composite(depth, winner, rec_rows, owner, meta, wvalid, *,
     dev = _cuda.call_device(depth, winner, rec_rows, owner, meta, wvalid)
     if dev.type == "cpu":
         return _fused_plain(depth, winner, rec_rows, owner, meta, wvalid,
-                            win_h=win_h, ntri=ntri, nedge=nedge)
+                            scissor, win_h=win_h, ntri=ntri, nedge=nedge)
     H, W = depth.shape
     nb = owner.shape[0]
     _cuda.require(depth, "depth", torch.float32)
@@ -457,6 +612,7 @@ def fused_eval_composite(depth, winner, rec_rows, owner, meta, wvalid, *,
     _cuda.require(wvalid, "wvalid", torch.bool, (nb,))
     if nedge not in (3, 4) or nb * ntri >= 0xFFFFFFFE:
         raise ValueError("fused_eval_composite: unsupported shape")
+    sc = None if scissor is None else _scissor_vec(scissor, dev)
     key = torch.empty(H * W + 1, dtype=torch.int64, device=depth.device)
     dep_out = torch.empty_like(depth)
     win_out = torch.empty_like(winner)
@@ -466,7 +622,8 @@ def fused_eval_composite(depth, winner, rec_rows, owner, meta, wvalid, *,
             depth.data_ptr(), winner.data_ptr(), rec_rows.data_ptr(),
             row_len, owner.data_ptr(), meta.data_ptr(), wvalid.data_ptr(),
             nb, ntri, nedge, win_h, H, W, key.data_ptr(), dep_out.data_ptr(),
-            win_out.data_ptr(), _cuda.stream_ptr(depth))
+            win_out.data_ptr(), None if sc is None else sc.data_ptr(),
+            _cuda.stream_ptr(depth))
     if err == _cuda.INVALID_VALUE:  # launched nothing
         raise ValueError(f"fused_eval_composite: one window of {ntri} "
                          f"slots and {win_h} rows exceeds a CTA's shared "

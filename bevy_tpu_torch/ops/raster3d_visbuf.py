@@ -49,17 +49,21 @@ def _pad_to(x, m):
 
 
 def pack_planes_h(cc, cn, valid, width, height, id_base=0, *,
-                  build_srec=False, materials=None, cuv=None, tex_rect=None,
+                  viewport=None, build_srec=False, materials=None, cuv=None,
+                  tex_rect=None,
                   tangents=None, nm_rect=None, lm_rect=None, dm_rect=None,
                   em_rect=None, mr_rect=None, oc_rect=None):
-    """Homogeneous (clipless) triangle setup, full-frame viewport.
+    """Homogeneous (clipless) triangle setup.
 
     cc: (..., 3, 4) clip-space corners; cn: (..., 3, 3) corner normals;
     valid: (...,) bool. Returns (zrec (..., ZREC), valid_out (...,)), or
     with `build_srec` (zrec, srec (..., SREC or SREC + 3), valid_out).
     Leading dims are batch dims; triangle ids are global row-major over
     them + id_base. Every expression keeps the JAX package's evaluation
-    order: the degenerate guards compare exact f32 values.
+    order: the degenerate guards compare exact f32 values. viewport: None
+    (the full frame) or the pixel rect (x0, y0, x1, y1) NDC maps onto
+    (floats, 0-d tensors or a (4,) tensor: a camera's viewport on the
+    device); the planes are in absolute framebuffer pixels.
 
     The shade record's inputs (all per triangle, (..., k)): materials
     (..., 9 | 15 | 18) [rgba, emissive, metallic, roughness, clearcoat,
@@ -76,7 +80,7 @@ def pack_planes_h(cc, cn, valid, width, height, id_base=0, *,
         t *= int(d)
     x, y, w = cc[..., 0], cc[..., 1], cc[..., 3]
     z = cc[..., 2]
-    vx0, vy0, vx1, vy1 = 0.0, 0.0, float(width), float(height)
+    vx0, vy0, vx1, vy1 = _viewport(viewport, width, height)
     vw, vh = vx1 - vx0, vy1 - vy0
     X = 0.5 * vw * x + (0.5 * vw + vx0) * w
     Y = -0.5 * vh * y + (0.5 * vh + vy0) * w
@@ -183,20 +187,29 @@ def _shade_records(e, cn, lead, dev, materials, cuv, tex_rect, tangents,
     return torch.cat(parts, -1)
 
 
+def _viewport(viewport, width, height):
+    """(x0, y0, x1, y1): the full frame's floats, or the rect's four
+    entries (0-d tensors when it is a tensor)."""
+    if viewport is None:
+        return 0.0, 0.0, float(width), float(height)
+    return tuple(viewport)
+
+
 def cluster_screen_aabbs(cc, inst_ok, tri_valid, cs: int, width, height,
-                         eps=1e-6):
+                         viewport=None, eps=1e-6):
     """Per-cluster conservative screen AABBs from clip-space corners.
 
     cc: (T, 3, 4) or (NCL, cs, 3, 4); inst_ok broadcastable to (NCL,);
-    tri_valid (T,). Clusters with a corner at w <= eps get the full
-    viewport. Returns (aabb (NCL,4), cl_valid (NCL,), zmax (NCL,)) — zmax
-    the nearest reverse-z bound (the front-to-back sort key)."""
+    tri_valid (T,); viewport as pack_planes_h's. Clusters with a corner at
+    w <= eps get the whole viewport rect. Returns (aabb (NCL,4), cl_valid
+    (NCL,), zmax (NCL,)) — zmax the nearest reverse-z bound (the
+    front-to-back sort key)."""
     if cc.ndim == 4:
         ncl = cc.shape[0]
         cc = cc.reshape(ncl * cs, 3, 4)
         tri_valid = tri_valid.reshape(ncl * cs)
     ncl = cc.shape[0] // cs
-    vx0, vy0, vx1, vy1 = 0.0, 0.0, float(width), float(height)
+    vx0, vy0, vx1, vy1 = _viewport(viewport, width, height)
     pts = cc.reshape(ncl, cs * 3, 4)
     w = pts[..., 3]
     x, y, zc = pts[..., 0], pts[..., 1], pts[..., 2]
@@ -295,9 +308,12 @@ def cluster_records(zrec, cs: int):
 
 
 def _scissor_vec(scissor, device):
-    """The scissor rect [x0, y0, x1, y1) as a (4,) f32 tensor on `device`,
-    each slot set in place (a fill, or a device copy of a 0-d tensor): no
+    """The scissor rect [x0, y0, x1, y1) as a (4,) f32 tensor on `device`:
+    a (4,) tensor as it is (a camera's viewport, on the device), else each
+    slot set in place (a fill, or a device copy of a 0-d tensor): no
     blocking host read a call."""
+    if isinstance(scissor, torch.Tensor) and scissor.shape == (4,):
+        return scissor.to(device=device, dtype=torch.float32).contiguous()
     sc = torch.empty(4, dtype=torch.float32, device=device)
     for k, v in enumerate(scissor):
         sc[k].fill_(v)

@@ -2,8 +2,10 @@
 
     python3 chip_smoke.py
 
-Builds the CUDA kernels from `bevy_tpu_torch/csrc/` (one nvcc process a
-source, all started together), then:
+(`python3 chip_smoke.py --a8-only` builds and runs phases 37-38 alone,
+printing no result line.) Builds the CUDA kernels from
+`bevy_tpu_torch/csrc/` (one nvcc process a source, all started together),
+then:
 1. holds the window-splat (B1) and streaming-tile (B2) kernels against
    their plain PyTorch versions, bit for bit, on a scene with both window
    classes and on one with giant and near-plane clusters, and B1 on four
@@ -192,7 +194,34 @@ source, all started together), then:
    the wireframe's gizmo pass) and no other, the overflows 0, every B1,
    B2, B3 and B4 call of one frame against plain, and 3 frames profiled
    for the kernel launches a frame, the busy share and the time by
-   system.
+   system;
+37. holds B1's scissor instantiation against its plain version, bit for
+   bit, on the cull scenes (tests/torch_scenes.py b1_cull_scenes, quad
+   records included) under a rect that cuts windows, blocks and tiles,
+   with its cull counts under the rect (0 dropped pairs that could
+   write); renders the split-screen worlds (tests/torch_scenes.py
+   split_world: tests/test_viewport.py's two cameras, with RenderLayers,
+   and examples/split_screen.py's four) on the group route and the
+   general route, and the slice's other stored small frames (OIT,
+   transmission, custom and extended materials, depth bias, occlusion
+   over 3 frames, the BVH cull, LOD chains, the cluster DAG, the smooth
+   shade-record world) against the JAX package's images (the golden
+   rule), every B1, B2 and B7 call bit-equal to plain, the overflows 0,
+   and counts the Memcpy DtoH records of one two-camera frame;
+38. runs the split-screen twin (examples/torch_split_screen.py, four
+   cameras) at 1280x720: 10 frames timed, B1 twice and B2 once a camera
+   and mesh group and no other kernel, every call of a frame bit-equal
+   to plain (B1 with its scissor), the busiest scissored B1 call timed
+   against plain and its bound (the kernels line's B1 "scissor" entry),
+   the Memcpy DtoH records of a frame, a 3-frame profile; many_cubes 160k
+   with occlusion_cull (phase_budget 160,000) and without: ms/frame,
+   launches, pair_overflow 0, the two frames under the golden rule,
+   every B1 / B2 call of an occlusion frame bit-equal, a profile; the
+   BVH scene at 1280x720 (identical to the unculled frame) and the DAG
+   scene (under the JAX test's bound of full detail); and the OIT,
+   transmission and custom-material twins (transparency_3d, blend_modes,
+   glass_and_coat, shader_material): 10 frames timed, launches,
+   overflows 0, every B1 / B2 call of a frame bit-equal, a profile.
 
 The shards of phases 15-19 all sit on the one card (a ShardMesh may repeat
 a device): their work runs one shard after another.
@@ -502,9 +531,14 @@ def work_b1(a, kw, aabb=None, chunk=1024):
     (must be 0), "tiles": (window tile, slot) pairs kept / in the frame,
     "px": the windows' in-frame pixels, "in_kept": those in a tile with a
     kept slot, "in_box": those whose centre lies in the owner's screen box
-    `aabb` (where given)}."""
+    `aabb` (where given)}. With a scissor rect (the call's seventh
+    argument, B1's scissor instantiation) every count but "old" takes the
+    rect's pixels only: no other pixel is evaluated or written."""
     from bevy_tpu_torch.ops import raster3d_splat as splat
-    depth, _, rows, owner, meta, wvalid = a
+    from bevy_tpu_torch.ops.raster3d_visbuf import _scissor_vec
+    depth, _, rows, owner, meta, wvalid = a[:6]
+    sc = a[6] if len(a) > 6 else kw.get("scissor")
+    sc = None if sc is None else _scissor_vec(sc, depth.device)
     win_h, ntri, nedge = kw["win_h"], kw["ntri"], kw["nedge"]
     H, W = depth.shape
     dev = depth.device
@@ -522,14 +556,18 @@ def work_b1(a, kw, aabb=None, chunk=1024):
         o = owner[c0:min(c0 + chunk, nv)].long()
         m = meta[c0:c0 + o.shape[0]]
         flat = flat_rows[o]
-        kept = splat.window_px_kept(flat, m, depth, win_h=win_h, ntri=ntri,
-                                    nedge=nedge)
+        kept = splat.window_px_kept(flat, m, depth, sc, win_h=win_h,
+                                    ntri=ntri, nedge=nedge)
         rec = flat[:, :ntri * stride].reshape(-1, 1, 1, ntri, stride)
         x = ((m // 2048) * 128)[:, None, None] + lane[None, None, :]
         y = (m % 2048)[:, None, None] + row[None, :, None]
         px = x.float()[..., None] + 0.5
         py = y.float()[..., None] + 0.5
         frame = (x < W) & (y < H)
+        n["old"] += int(frame.sum()) * ntri
+        if sc is not None:          # a pixel outside the rect never writes
+            frame = frame & (px[..., 0] >= sc[0]) & (px[..., 0] < sc[2]) & \
+                (py[..., 0] >= sc[1]) & (py[..., 0] < sc[3])
         inside = frame[..., None]
         for j in range(nedge):
             e = (rec[..., 3 * j] * px + rec[..., 3 * j + 2]) + \
@@ -543,7 +581,6 @@ def work_b1(a, kw, aabb=None, chunk=1024):
         t = torch.arange(kept.shape[1], device=dev)
         tx = ((m // 2048) * 128)[:, None] + (t % 16 * 8)[None, :]
         ty = (m % 2048)[:, None] + (t // 16 * 4)[None, :]
-        n["old"] += int(frame.sum()) * ntri
         n["kept"] += int(kpx.sum())
         n["inside"] += int((inside & kpx).sum())
         n["writing"] += int(writing.sum())
@@ -597,7 +634,7 @@ def bound_b1(a, kw):
     old figure — whole padded record rows, 9 B of every window of the
     budget, every pixel of every valid window and every slot — and the
     pair counts in the text."""
-    depth, _, rec_rows, owner, _, wvalid = a
+    depth, _, rec_rows, owner, _, wvalid = a[:6]
     npx = depth.numel()
     nv = int(wvalid.sum())
     used = torch.unique(owner[wvalid.bool()]).numel()
@@ -700,7 +737,7 @@ def bound_b2(a, kw):
     record rows and table entries; per (tile, listed triangle) a 5-compare
     AABB test, and for each that passes, per tile pixel 3 edge planes and a
     depth plane (2 mul, 2 add each) and 4 compares."""
-    depth, _, recs, cl_table, cl_counts = a
+    depth, _, recs, cl_table, cl_counts = a[:5]
     cs, th, tw = kw["cs"], kw["tile_h"], kw["tile_w"]
     nt, max_cl = cl_table.shape
     live = (torch.arange(max_cl, device=depth.device)[None, :]
@@ -2829,6 +2866,284 @@ def screen_pass_phases(dev, n, smi):
     torch.cuda.synchronize()
 
 
+# the slice's stored small frames (tests/make_torch_goldens.py; phase 37)
+A8_GOLDENS = ("split_two", "split_layers", "split_four", "oit_panes",
+              "oit_blend", "glass_tint", "glass_volume",
+              "glass_translucent", "shader_toon", "shader_quantize",
+              "bias_green", "bias_red", "occl_f3", "budget_64", "bvh_f1",
+              "lod_15",
+              "lod_coarse", "dag_f1", "smooth_srec")
+# the OIT, transmission and custom-material twins at 1280x720 (phase 38)
+A8_TWINS = (("transparency_3d", "torch_transparency_3d"),
+            ("blend_modes", "torch_blend_modes"),
+            ("glass_and_coat", "torch_glass_and_coat"),
+            ("shader_material", "torch_shader_material"))
+
+
+def dtoh_count(app):
+    """The Memcpy DtoH records of one frame after a warm one
+    (torch.profiler's CUDA activity): each is a read of the device by the
+    host."""
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+    step = app.frame_fn()
+    state = step(app.world.state)
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA]) as prof:
+        state = step(state)
+        torch.cuda.synchronize()
+    app.world.state = state
+    return sum(1 for e in prof.events() if "Memcpy DtoH" in e.name)
+
+
+def check_calls(label, rec, kids=("B1", "B2", "B7")):
+    """Every recorded call of `kids` against its plain version, bit for
+    bit; logs the counts. Returns {kid: [(a, kw), ...]}."""
+    for kid in kids:
+        calls = rec.calls[kid]
+        if not calls:
+            continue
+        errs = [compare(kid, a, kw) for a, kw in calls]
+        at = {"B1": 6, "B2": 5}.get(kid, 7)      # the scissor argument
+        sc = sum(1 for a, kw in calls if len(a) > at and a[at] is not None)
+        log(f"  {kid} vs plain, {label}: {len(calls)} calls bit-equal "
+            f"({sc} scissored; max abs err {max(errs)})")
+    return rec.calls
+
+
+def a8_phases(dev, n, smi, results):
+    """Phases 37-38: the rest of A8 — cameras and viewports (B1's scissor
+    instantiation, B2's and B7's), OIT, transmission, custom materials,
+    depth bias, two-phase occlusion, the BVH cull, LOD chains and the
+    cluster DAG."""
+    import importlib
+
+    import torch_many_cubes
+    from torch_many_cubes import profile_frames
+    from torch_scenes import (
+        GOLDEN_SCENES, b1_cull_scenes, bvh_world, dag_world, golden_key,
+        occl_world, port_scene_modules, shade_record_world, split_world,
+    )
+    from bevy_tpu_torch.render import frame_image
+
+    # -- 37a: B1's scissor instantiation on the cull scenes, under a rect
+    #    that cuts windows, blocks and tiles on all four sides -----------
+    for name, (rows, d0, w0, o, m, v, kw, _) in b1_cull_scenes(dev).items():
+        H, W = d0.shape
+        sc = torch.tensor([W * 0.15 + 0.5, H * 0.1 + 0.25, W * 0.8 + 0.25,
+                           H * 0.85], device=dev)
+        a = (d0, w0, rows, o, m, v, sc)
+        err = compare("B1", a, kw)
+        cut = kernel_fn("B1")(*a, **kw)[1]
+        full = kernel_fn("B1")(*a[:6], **kw)[1]
+        log(f"B1 vs plain, {name} scene, scissor {sc.tolist()}: bit-equal "
+            f"(max abs err {err}); {int((cut != full).sum())} pixels the "
+            f"rect keeps from a slot")
+        if bool((cut == full).all()):
+            raise AssertionError("the B1 scissor rect cut nothing")
+        b1_cull_line(f"{name} scene, scissor", a, kw)
+
+    # -- 37b: the split-screen worlds on both routes, and the slice's
+    #    stored small frames, against the JAX package's images ------------
+    pm = port_scene_modules()
+    gold = ROOT / "tests" / "goldens"
+    keys = json.loads((gold / "torch_goldens.json").read_text())
+    for name in A8_GOLDENS:
+        if keys.get(name) != golden_key(name):
+            raise AssertionError(f"golden {name}: the scene changed")
+        fn, args = GOLDEN_SCENES[name]
+        routes = ({}, {"backend": "xla"}) if fn is split_world else ({},)
+        for route in routes:
+            label = f"{name}{' (general route)' if route else ''}"
+            with Recorder() as rec:
+                if fn is shade_record_world:
+                    img, app = fn(pm, args[0], {"device": dev}, route)
+                else:
+                    img, app = fn(pm, {"device": dev}, route, *args)
+            torch.cuda.synchronize()
+            if fn is occl_world:
+                stored = np.load(gold / f"{name}.npz")["frames"].astype(int)
+                for i, (a_, b_) in enumerate(zip(img, stored)):
+                    d = np.abs(a_ - b_).max(-1)
+                    log(f"golden {name} frame {i}: {float((d > 8).mean()):.4%}"
+                        f" of pixels drift > 8 (max channel diff {d.max()})")
+                    if float((d > 8).mean()) >= 0.01:
+                        raise AssertionError(f"golden {name} failed")
+                vis = app.world.state["res"]["mesh_vis"]["g0v0"]
+                log(f"  {name}: occlusion mask {int(vis.sum())} of "
+                    f"{vis.numel()} clusters visible after 3 frames")
+            else:
+                check_golden(img, gold / f"{name}.png")
+            check_calls(label, rec)
+            stat_keys = [k for k in STATS_3D
+                         if k in app.world.state["res"]["render_stats"]]
+            if name == "budget_64":     # 64 of the visible clusters drawn
+                st = app.world.state["res"]["render_stats"]
+                log(f"  {name}: pair_overflow {int(st['pair_overflow'])} "
+                    f"(the visible clusters past the budget)")
+                stat_keys.remove("pair_overflow")
+            check_stats(app.world.state, stat_keys)
+            if name == "split_two" and not route:
+                log(f"  split_two, one two-camera frame: "
+                    f"{dtoh_count(app)} Memcpy DtoH records")
+            del app, rec
+
+    # -- 38a: the split-screen twin at 1280x720, four cameras -------------
+    import torch_split_screen
+    app = torch_split_screen.build_app(device=dev)
+    ms, launches, stats, covered = timed_frames(app, n)
+    log(f"split_screen 4 cameras @1280x720: {ms:.3f} ms/frame over {n} "
+        f"frames (CUDA events; {smi}); kernel launches a frame "
+        f"{ {k: v / n for k, v in launches.items() if v} }; overflows "
+        f"{ {k: stats[k] for k in STATS_3D if k in stats} }; covered "
+        f"pixels {covered:.3f}")
+    if launches["B1"] != 24 * n or launches["B2"] != 12 * n or any(
+            launches[k] for k in ("B3", "B4", "B5", "B6", "B7", "B8")):
+        raise AssertionError(f"split_screen: launches {launches} (B1 twice "
+                             f"and B2 once a camera and mesh group)")
+    check_stats(app.world.state, [k for k in STATS_3D if k in stats])
+    with Recorder() as rec:
+        app.update(dt=1 / 60)
+    torch.cuda.synchronize()
+    calls = check_calls("split_screen @1280x720", rec, ("B1", "B2"))
+    if not all(a[6] is not None for a, _ in calls["B1"]):
+        raise AssertionError("split_screen: a B1 call without its scissor")
+    a, kw = max(calls["B1"], key=lambda c: int(c[0][5].sum()))
+    b1_cull_line("split_screen @1280x720, busiest scissored call", a, kw)
+    sc = time_kernel("B1", a, kw, launches["B1"], compare("B1", a, kw),
+                     where="on the split-screen frame's busiest scissored "
+                     "call")
+    results["B1"]["scissor"] = {k: sc[k] for k in (
+        "launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+        "library_ms")}
+    log(f"  split_screen, one four-camera frame: {dtoh_count(app)} Memcpy "
+        f"DtoH records")
+    state, wall, nk, per_span, _, _ = profile_frames(
+        app.frame_fn(), app.world.state, 3)
+    app.world.state = state
+    busy = sum(per_span.values()) / 1000.0
+    top = sorted(per_span.items(), key=lambda kv: -kv[1])[:6]
+    log(f"  profile, 3 frames: {wall / 3:.3f} ms/frame wall (profiler on), "
+        f"kernels {busy / 3:.3f} ms/frame = {busy / wall:.1%} busy, idle "
+        f"{1 - busy / wall:.1%}, {nk // 3} kernel launches/frame; device "
+        f"ms/frame by innermost span: "
+        + "; ".join(f"{k_} {us / 3000:.3f}" for k_, us in top))
+    del app, rec, calls
+    torch.cuda.empty_cache()
+
+    # -- 38b: many_cubes 160k with two-phase occlusion culling ------------
+    apps = {}
+    for occ in (False, True):
+        app = torch_many_cubes.build_app(device=dev, occlusion_cull=occ,
+                                         phase_budget=160_000)
+        ms, launches, stats, covered = timed_frames(app, n)
+        log(f"many_cubes 160000 @1280x720, occlusion_cull={occ}: "
+            f"{ms:.3f} ms/frame over {n} frames (CUDA events; {smi}); "
+            f"launches a frame "
+            f"{ {k: v / n for k, v in launches.items() if v} }"
+            f"; pair_overflow {stats['pair_overflow']}, tile_overflow "
+            f"{stats['tile_overflow']}, fallback clusters "
+            f"{stats['fallback_clusters'] / n:.1f}/frame")
+        check_stats(app.world.state, ("pair_overflow",))
+        apps[occ] = app
+    vis = apps[True].world.state["res"]["mesh_vis"]["g0v0"]
+    log(f"  occlusion mask after {n + 3} frames: {int(vis.sum())} of "
+        f"{vis.numel()} clusters visible")
+    d = np.abs(frame_image(apps[True]).astype(int) -
+               frame_image(apps[False]).astype(int)).max(-1)
+    log(f"  many_cubes occluded vs unculled frame: "
+        f"{float((d > 8).mean()):.4%} of pixels drift > 8 (max channel diff "
+        f"{d.max()}, {int((d > 0).sum())} pixels differ)")
+    if float((d > 8).mean()) >= 0.01:
+        raise AssertionError("occlusion culling changed the frame")
+    with Recorder() as rec:
+        apps[True].update(dt=1 / 60)
+    torch.cuda.synchronize()
+    check_calls("many_cubes occlusion @1280x720", rec, ("B1", "B2"))
+    state, wall, nk, per_span, _, _ = profile_frames(
+        apps[True].frame_fn(), apps[True].world.state, 3)
+    busy = sum(per_span.values()) / 1000.0
+    top = sorted(per_span.items(), key=lambda kv: -kv[1])[:6]
+    log(f"  profile, 3 occlusion frames: {wall / 3:.3f} ms/frame wall "
+        f"(profiler on), kernels {busy / 3:.3f} ms/frame = "
+        f"{busy / wall:.1%} busy, {nk // 3} kernel launches/frame; device "
+        f"ms/frame by innermost span: "
+        + "; ".join(f"{k_} {us / 3000:.3f}" for k_, us in top))
+    del apps, rec, state
+    torch.cuda.empty_cache()
+
+    # -- 38c: the BVH and cluster-DAG scenes at 1280x720 ------------------
+    imgs = {}
+    for flag in (False, True):
+        with Recorder() as rec:
+            imgs[flag], app = bvh_world(pm, {"device": dev}, {}, flag,
+                                        width=1280, height=720)
+        torch.cuda.synchronize()
+        check_calls(f"bvh_world bvh_cull={flag} @1280x720", rec,
+                    ("B1", "B2"))
+        check_stats(app.world.state, ("pair_overflow", "tile_overflow"))
+    same = bool((imgs[True] == imgs[False]).all())
+    log(f"  bvh_world @1280x720: the culled frame equals the unculled: "
+        f"{same}")
+    if not same:
+        raise AssertionError("the BVH cull changed the frame")
+    # the JAX test's distance (at 1280x720 its cut is the full-detail
+    # clusters) and a far one, where the cut mixes levels
+    for dist in (6.0, 40.0):
+        for flag in (False, True):
+            with Recorder() as rec:
+                imgs[flag], app = dag_world(pm, {"device": dev}, {}, flag,
+                                            dist=dist, width=1280,
+                                            height=720)
+            torch.cuda.synchronize()
+            check_calls(f"dag_world dag={flag} at {dist} @1280x720", rec,
+                        ("B1", "B2"))
+            check_stats(app.world.state, ("pair_overflow", "tile_overflow"))
+        d = np.abs(imgs[True] - imgs[False]).max(-1)
+        log(f"  dag_world at {dist} @1280x720, the DAG cut against full "
+            f"detail: {float((d > 24).mean()):.4%} of pixels differ by > 24"
+            f" (the JAX test's bound: 2%), {float((d > 8).mean()):.4%} by "
+            f"> 8, {int((d > 0).sum())} pixels differ")
+        if float((d > 24).mean()) >= 0.02:
+            raise AssertionError("the DAG cut diverges from full detail")
+    del app, rec, imgs
+
+    # -- 38d: the OIT, transmission and custom-material twins -------------
+    for label, mod_name in A8_TWINS:
+        app = importlib.import_module(mod_name).build_app(device=dev)
+        ms, launches, stats, covered = timed_frames(app, n)
+        log(f"{label} @1280x720: {ms:.3f} ms/frame over {n} frames (CUDA "
+            f"events; {smi}); kernel launches a frame "
+            f"{ {k: v / n for k, v in launches.items() if v} }; overflows "
+            f"{ {k: stats[k] for k in STATS_3D if k in stats} }; covered "
+            f"pixels {covered:.3f}")
+        if launches["B1"] == 0 or any(launches[k] for k in (
+                "B3", "B4", "B5", "B6", "B7", "B8")):
+            raise AssertionError(f"{label}: launches {launches}")
+        check_stats(app.world.state, [k for k in STATS_3D if k in stats])
+        with Recorder() as rec:
+            app.update(dt=1 / 60)
+        torch.cuda.synchronize()
+        check_calls(label, rec, ("B1", "B2"))
+        state, wall, nk, per_span, _, incl = profile_frames(
+            app.frame_fn(), app.world.state, 3)
+        app.world.state = state
+        busy = sum(per_span.values()) / 1000.0
+        top = sorted(per_span.items(), key=lambda kv: -kv[1])[:6]
+        log(f"  profile, 3 frames: {wall / 3:.3f} ms/frame wall (profiler "
+            f"on), kernels {busy / 3:.3f} ms/frame = {busy / wall:.1%} busy,"
+            f" idle {1 - busy / wall:.1%}, {nk // 3} kernel launches/frame; "
+            f"device ms/frame by innermost span: "
+            + "; ".join(f"{k_} {us / 3000:.3f}" for k_, us in top)
+            + "".join(f"; {k_} with every kernel inside {us / 3000:.3f}"
+                      for k_, (_, us) in incl.items()))
+        if not np.isfinite(frame_image(app)).all():
+            raise AssertionError(f"{label}: image not finite")
+        del app, rec
+        torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+
+
 def main():
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -2879,6 +3194,13 @@ def main():
             f"registers")
     log(f"  ptxas: {len(spilled)} functions spill"
         + "".join(f"\n    {e}" for e in spilled))
+
+    if sys.argv[1:] == ["--a8-only"]:
+        # development: the build and phases 37-38 alone, no result line
+        a8_phases(dev, 10, smi, {"B1": {}})
+        log(f"chip_smoke.py --a8-only ran {time.perf_counter() - t_start:.1f}"
+            f" s")
+        return
 
     # -- kernels vs plain, golden scene and near-plane scene ------------
     golden_app = torch_many_cubes.build_app(
@@ -3102,6 +3424,8 @@ def main():
     twin_2d_phases(dev, n, smi)
 
     screen_pass_phases(dev, 10, smi)
+
+    a8_phases(dev, 10, smi, results)
 
     log(f"chip_smoke.py ran {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [results[k] for k in KERNELS]}))

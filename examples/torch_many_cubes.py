@@ -64,9 +64,14 @@ def build_app(n_cubes=160_000, width=1280, height=720, capacity=None,
               max_per_tile=3072, pairs_per_tri=2, backend="auto",
               tile_h=16, tile_w=128, window_budget=131072,
               eval_tris=8, cull_budget=65536, shards=None,
+              occlusion_cull=False, phase_budget=16384,
               device="cuda") -> App:
     """shards: None, a CUDA card count or a ShardMesh — the mesh pass then
-    rasters over those devices (parallel/raster.py)."""
+    rasters over those devices (parallel/raster.py). occlusion_cull:
+    two-phase occlusion culling, at most phase_budget clusters a phase
+    (the instance cull then stays off, as in the JAX package); the JAX
+    default of 16,384 is below the frame's ~55k visible cubes, so a full
+    frame needs about the cube count."""
     # size the world to the scene (+ a little headroom), as the JAX example
     cap = capacity or ((n_cubes + 4103) // 8 * 8)
     app = App(capacity=cap, device=device)
@@ -78,7 +83,8 @@ def build_app(n_cubes=160_000, width=1280, height=720, capacity=None,
                           tile_w=tile_w, window_budget=window_budget,
                           eval_tris=eval_tris, cull_budget=cull_budget,
                           pairs_per_tri=pairs_per_tri, backend=backend,
-                          shards=shards)
+                          shards=shards, occlusion_cull=occlusion_cull,
+                          phase_budget=phase_budget)
     cube_id = plugin.add_mesh(cuboid(1.0, 1.0, 1.0))
     app.add_plugins(TimePlugin(), TransformPlugin(),
                     RenderPlugin(width=width, height=height), plugin)
@@ -114,8 +120,9 @@ def build_app(n_cubes=160_000, width=1280, height=720, capacity=None,
 
 
 SPANS = ("system:", "mesh:", "lights:", "sprite:", "skin:",
-         "shadow:", "gizmo:", "tilemap:")                # profiler spans
-OUTER = ("shadow:",)       # spans also summed over every kernel inside
+         "shadow:", "gizmo:", "tilemap:", "transmission:")  # profiler spans
+# spans also summed over every kernel inside
+OUTER = ("shadow:", "transmission:")
 
 
 def profile_frames(step, state, frames):
@@ -199,9 +206,14 @@ def main():
     ap.add_argument("--backend", default="auto",
                     choices=("auto", "pallas", "xla"),
                     help="the mesh pass's route: xla = the general route")
+    ap.add_argument("--occlusion", type=int, default=0, metavar="BUDGET",
+                    help="two-phase occlusion culling, BUDGET clusters a "
+                    "phase (0: off)")
     args = ap.parse_args()
     app = build_app(shards=make_mesh(devices=["cuda"] * args.shards)
-                    if args.shards else None, backend=args.backend)
+                    if args.shards else None, backend=args.backend,
+                    occlusion_cull=args.occlusion > 0,
+                    phase_budget=args.occlusion or 16384)
     step = app.frame_fn()
     state = app.world.state
     for _ in range(3):

@@ -17,6 +17,19 @@ bevy_tpu_torch against, into tests/goldens/:
   the screen-pass worlds of tests/test_torch_motion_ssaa.py
   (torch_scenes post_world, aa_world "taa" and "ssaa", fog_world,
   ssr_world);
+- smooth_srec.png: tests/torch_scenes.py shade_record_world "smooth"
+  (smooth spheres on the shade records beside flat cubes) through the
+  group route's kernels;
+- split_two.png, split_layers.png, split_four.png (split_world, through
+  the JAX general route: its group route renders no viewport),
+  oit_panes.png, oit_blend.png (oit_world), glass_tint.png,
+  glass_volume.png, glass_translucent.png (glass_world), shader_toon.png,
+  shader_quantize.png (shader_world), bias_green.png, bias_red.png
+  (bias_world), occl_f3.npz (occl_world's three frames with occlusion
+  culling), budget_64.png (budget_world: 64 of the visible clusters),
+  bvh_f1.png, lod_15.png, lod_coarse.png, dag_f1.png: the
+  worlds of cameras and viewports, OIT, transmission, custom materials,
+  depth bias, occlusion, the BVH cull, LOD chains and the cluster DAG;
 - torch_goldens.json: each image's torch_scenes.golden_key (a hash of
   its scene builder and arguments), which the test asserts.
 
@@ -100,6 +113,22 @@ def render(name):
         img = fn(m, {}, JAX_KW, *args)[0]
         from PIL import Image
         Image.fromarray(img.astype(np.uint8)).save(GOLDENS / f"{name}.png")
+    elif fn in torch_scenes.A8_BUILDERS:
+        import bevy_tpu.render.mesh3d as jm3
+        # the JAX transparent phase reads an undefined module name
+        # `cl_extra` (ROADMAP C3); None is what its opaque phase passes
+        # without a BVH or DAG
+        jm3.cl_extra = None
+        kw = {"backend": torch_scenes.GOLDEN_BACKEND.get(
+            name, JAX_KW["backend"])}
+        out = fn(m, {}, kw, *args)[0]
+        if fn is torch_scenes.occl_world:
+            np.savez_compressed(GOLDENS / f"{name}.npz",
+                                frames=np.stack(out).astype(np.uint8))
+        else:
+            from PIL import Image
+            Image.fromarray(out.astype(np.uint8)).save(
+                GOLDENS / f"{name}.png")
     elif fn is torch_scenes.material_world:
         color = fn(m, args[0], {}, JAX_KW, *args[1:])[1]
         np.savez_compressed(GOLDENS / f"{name}.npz",

@@ -417,24 +417,36 @@ def test_decode_png_matches_pil(mode):
 # -- group-route worlds on the shade records ---------------------------------
 
 
-# the JAX oracle of each world: "atlas" through its group route's kernels
-# in interpret mode (a minute of Pallas lowering, so one world, one mesh);
-# "smooth" (no atlas; spheres on the shade records beside flat cubes)
-# through its XLA general route, which shades smooth meshes with the same
-# per-pixel Lambert + ambient + emissive (and lowers in seconds)
-WORLD_ORACLE = {"atlas": "pallas_interpret", "smooth": "xla"}
+# the JAX oracle of each case: "atlas" through its group route's kernels
+# in interpret mode, live (a minute of Pallas lowering, so one world, one
+# mesh); "smooth" (no atlas; spheres on the shade records beside flat
+# cubes) through the same group route, its output stored by
+# tests/make_torch_goldens.py (smooth_srec.png, keyed to the scene), and
+# through its XLA general route, live, which shades smooth meshes with the
+# same per-pixel Lambert + ambient + emissive (and lowers in seconds)
+WORLD_ORACLE = {"atlas": "pallas_interpret", "smooth": "stored",
+                "smooth-xla": "xla"}
 
 
-@pytest.mark.parametrize("kind", ["atlas", "smooth"])
-def test_group_route_shade_record_world_matches_jax(kind):
+@pytest.mark.parametrize("case", ["atlas", "smooth", "smooth-xla"])
+def test_group_route_shade_record_world_matches_jax(case):
     import importlib
+    import json
 
     from torch_scenes import (
-        SCENE_MODULES, port_scene_modules, shade_record_world)
-    jmods = {k: importlib.import_module(f"bevy_tpu{v}")
-             for k, v in SCENE_MODULES.items()}
-    jimg, _ = shade_record_world(jmods, kind, {},
-                                 {"backend": WORLD_ORACLE[kind]})
+        SCENE_MODULES, golden_key, port_scene_modules, shade_record_world)
+    kind = case.split("-")[0]
+    if WORLD_ORACLE[case] == "stored":
+        from PIL import Image
+        gold = Path(__file__).resolve().parent / "goldens"
+        keys = json.loads((gold / "torch_goldens.json").read_text())
+        assert keys["smooth_srec"] == golden_key("smooth_srec")
+        jimg = np.asarray(Image.open(gold / "smooth_srec.png")).astype(int)
+    else:
+        jmods = {k: importlib.import_module(f"bevy_tpu{v}")
+                 for k, v in SCENE_MODULES.items()}
+        jimg, _ = shade_record_world(jmods, kind, {},
+                                     {"backend": WORLD_ORACLE[case]})
     timg, tapp = shade_record_world(port_scene_modules(), kind,
                                     {"device": "cpu"}, {})
     assert jimg.shape == timg.shape

@@ -358,11 +358,20 @@ def _compare_visbuf(jd, jw, td, tw):
     assert np.mean(jw[cov] == tw[cov]) >= 0.995
 
 
+# a rect that cuts the far scene's windows and their 8 x 4 tiles on all
+# four sides, at unaligned coordinates (B1's scissor instantiation)
+FAR_SCISSOR = (41.5, 7.25, 203.75, 101.0)
+
+
+@pytest.mark.parametrize("scissor", [None, FAR_SCISSOR],
+                         ids=["full", "scissor"])
 @pytest.mark.parametrize("quads", [False, True])
-def test_fused_eval_composite_plain_matches_pallas(far, quads):
+def test_fused_eval_composite_plain_matches_pallas(far, quads, scissor):
     """Kernel B1's plain version vs the Pallas `_fused_kernel` (interpret
     mode) on the same windows and record rows, over a framebuffer that
-    already holds depth (so the incoming value's tie rule is exercised)."""
+    already holds depth (so the incoming value's tie rule is exercised);
+    with a scissor, the reference's `use_scissor` instantiation (a static
+    viewport of Python floats) against the port's rect as a tensor."""
     zrec = jnp.asarray(far["zrec"])
     if quads:
         m = j_cuboid()
@@ -382,11 +391,33 @@ def test_fused_eval_composite_plain_matches_pallas(far, quads):
         jnp.asarray(dep0), jnp.asarray(win0), zrec, wins["owner"],
         wins["meta"], wins["wvalid"], win_h=16, cs=CS, eval_tris=8,
         interpret=True, rec_rows=rows, nedge=nedge,
-        rec_slots=nslots if quads else None)
+        rec_slots=nslots if quads else None, viewport=scissor)
     td, tw = tsplat.fused_eval_composite(
         T(dep0), T(win0), T(rows), T(wins["owner"]), T(wins["meta"]),
-        T(wins["wvalid"]), win_h=16, ntri=nslots, nedge=nedge)
+        T(wins["wvalid"]), None if scissor is None else T(
+            np.float32(scissor)), win_h=16, ntri=nslots, nedge=nedge)
     _compare_visbuf(jd, jw, td, tw)
+    if scissor is not None:
+        # the same winners; inside the rect the port's unscissored bits,
+        # outside it the incoming values, in both packages (depth bits
+        # across the packages differ by an ulp where XLA's CPU backend
+        # contracts the plane's multiply-add: 105 of 32,768 pixels here,
+        # 130 without the scissor)
+        assert np.array_equal(N(tw), N(jw))
+        fd, fw = tsplat.fused_eval_composite(
+            T(dep0), T(win0), T(rows), T(wins["owner"]), T(wins["meta"]),
+            T(wins["wvalid"]), win_h=16, ntri=nslots, nedge=nedge)
+        x0, y0, x1, y1 = scissor
+        px = np.arange(W)[None, :] + 0.5
+        py = np.arange(H)[:, None] + 0.5
+        rect = (px >= x0) & (px < x1) & (py >= y0) & (py < y1)
+        assert np.array_equal(
+            N(td).view(np.int32),
+            np.where(rect, N(fd), dep0).view(np.int32))
+        assert np.array_equal(N(tw), np.where(rect, N(fw), win0))
+        assert np.array_equal(N(jd)[~rect], dep0[~rect])
+        assert (N(jw)[~rect] == -1).all() and (N(jw)[rect] >= 0).any()
+        assert not np.array_equal(N(tw), N(fw))
 
 
 def _b1_case(name, far, near):
@@ -417,8 +448,8 @@ def _b1_case(name, far, near):
     return rows, T(depth), wins["owner"], wins["meta"], wins["wvalid"], kw
 
 
-def _b1_writes_dropped(rows, depth, owner, meta, wvalid, *, win_h, ntri,
-                       nedge):
+def _b1_writes_dropped(rows, depth, owner, meta, wvalid, scissor=None, *,
+                       win_h, ntri, nedge):
     """(pairs that can write, of them dropped by window_px_kept, the kept
     (tile, slot) mask) of the valid windows: a (pixel, slot) pair can
     write iff the pixel is in the frame, every edge reads <= 0 and z beats
@@ -428,13 +459,16 @@ def _b1_writes_dropped(rows, depth, owner, meta, wvalid, *, win_h, ntri,
     nv = int(wvalid.sum())
     m = meta[:nv]
     rec = rows.reshape(rows.shape[0], -1)[owner[:nv].long()]
-    kept = tsplat.window_px_kept(rec, m, depth, win_h=win_h, ntri=ntri,
-                                 nedge=nedge)
+    kept = tsplat.window_px_kept(rec, m, depth, scissor, win_h=win_h,
+                                 ntri=ntri, nedge=nedge)
     x = ((m // 2048) * 128)[:, None, None] + torch.arange(128)[None, None, :]
     y = (m % 2048)[:, None, None] + torch.arange(win_h)[None, :, None]
     px, py = x.to(torch.float32) + 0.5, y.to(torch.float32) + 0.5
     dep = depth[y.clamp(max=height - 1), x.clamp(max=width - 1)]
     frame = (x < width) & (y < height)
+    if scissor is not None:          # outside the rect nothing writes
+        x0, y0, x1, y1 = scissor
+        frame = frame & (px >= x0) & (px < x1) & (py >= y0) & (py < y1)
     tile = (torch.arange(win_h)[:, None] // 4) * 16 + \
         torch.arange(128)[None, :] // 8
     stride = 3 * nedge + 4
@@ -474,6 +508,26 @@ def test_window_px_kept_drops_only_outside_pairs(name, far, near):
     assert dropped == 0
     assert writes > 0
     assert int(kept.sum()) < kept.numel()
+
+
+@pytest.mark.parametrize("name", ["far_tris", "far_quads", "slivers",
+                                  "many_slots"])
+def test_window_px_kept_scissor_drops_only_outside_pairs(name, far, near):
+    """B1's cull under a scissor rect (the scissor instantiation also drops
+    the 32 x 16 blocks and 8 x 4 tiles no pixel centre of which can pass
+    the rect) drops no pair that could write inside the rect, and drops
+    more than the cull without the rect."""
+    rows, depth, owner, meta, wvalid, kw = _b1_case(name, far, near)
+    H, W = depth.shape
+    sc = (W * 0.15 + 0.5, H * 0.1 + 0.25, W * 0.8 + 0.25, H * 0.85)
+    writes, dropped, kept = _b1_writes_dropped(rows, depth, owner, meta,
+                                               wvalid, sc, **kw)
+    assert dropped == 0
+    assert writes > 0
+    _, _, kept_full = _b1_writes_dropped(rows, depth, owner, meta, wvalid,
+                                         **kw)
+    assert int(kept.sum()) < int(kept_full.sum())
+    assert not (kept & ~kept_full).any()
 
 
 # a rect that cuts the near scene's 16 x 128 tiles (and one 16 x 64 block

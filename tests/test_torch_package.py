@@ -37,7 +37,13 @@ TWINS = ("torch_many_cubes", "torch_many_lights", "torch_many_sprites",
          "torch_auto_exposure_demo", "torch_depth_of_field",
          "torch_motion_blur_demo", "torch_fog_3d", "torch_3d_scene",
          "torch_pbr_materials", "torch_ssr_demo",
-         "torch_irradiance_volumes", "torch_decals", "torch_wireframe")
+         "torch_irradiance_volumes", "torch_decals", "torch_wireframe",
+         "torch_split_screen", "torch_transparency_3d", "torch_blend_modes",
+         "torch_glass_and_coat", "torch_shader_material")
+# the slice modules whose entry points must default to the card
+CARD_DEFAULTS = ("torch_split_screen", "torch_transparency_3d",
+                 "torch_blend_modes", "torch_glass_and_coat",
+                 "torch_shader_material", "torch_many_cubes")
 
 
 def _imports(path):
@@ -63,6 +69,23 @@ def test_port_never_imports_jax(path):
 def test_every_example_twin_is_guarded():
     names = {p.stem for p in PORT_FILES}
     assert set(TWINS) <= names
+
+
+@pytest.mark.parametrize("name", CARD_DEFAULTS)
+def test_twin_defaults_to_the_card(name):
+    """A twin's build_app runs on the card unless the caller asks for the
+    CPU; on a machine without one it raises instead of falling back."""
+    import inspect
+    sys.path.insert(0, str(ROOT / "examples"))
+    try:
+        build = importlib.import_module(name).build_app
+    finally:
+        sys.path.remove(str(ROOT / "examples"))
+    assert inspect.signature(build).parameters["device"].default == "cuda"
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            build(width=64, height=32) if name != "torch_many_cubes" \
+                else build(n_cubes=8, width=64, height=32)
 
 
 def test_import_builds_nothing():

@@ -511,11 +511,15 @@ def test_no_lights_leaves_ambient_only():
 
 
 def test_deferred_plugin_refuses_unported_features():
-    """Transmission and depth bias (both A8) in a deferred world raise
-    instead of rendering something else, naming their ROADMAP item;
-    sharded shading (ported) over more CUDA cards than exist raises
-    instead of falling back to fewer or the CPU. Specular tint and
-    anisotropy (A4b, ported) render: tests/test_torch_shadow.py."""
+    """Transmission and depth bias (A8's rest, ported) in a deferred world
+    render: a transmissive row leaves the opaque G-buffer pass (the
+    transmission pass draws it, as in the JAX package), a biased row
+    draws; several cameras or a viewport raise, naming ROADMAP C3 (the
+    JAX package's deferred shade reads the first camera only); sharded
+    shading over more CUDA cards than exist raises instead of falling
+    back to fewer or the CPU. Specular tint and anisotropy (A4b, ported)
+    render: tests/test_torch_shadow.py."""
+    from bevy_tpu_torch.render.camera import Camera3d
     import torch_many_lights
     from bevy_tpu_torch.render.deferred import DeferredLightingPlugin
     from bevy_tpu_torch.render.mesh3d import Mesh3d, MeshMaterial
@@ -523,12 +527,14 @@ def test_deferred_plugin_refuses_unported_features():
 
     with pytest.raises(ValueError, match="devices"):
         DeferredLightingPlugin(shards=torch.cuda.device_count() + 1)
-    for values, item in (({"specular_transmission": 0.5}, "A8"),
-                         ({"depth_bias": 1.0}, "A8")):
+    for values in ({"specular_transmission": 0.5}, {"depth_bias": 1.0}):
         app = torch_many_lights.build_app(device="cpu", n_lights=4,
                                           n_cubes=1, width=128, height=64,
                                           capacity=16)
         app.world.spawn(Mesh3d(mesh=0), MeshMaterial(**values),
                         *transform_bundle())
-        with pytest.raises(NotImplementedError, match=item):
-            app.update(dt=1 / 60)
+        app.update(dt=1 / 60)
+        assert (app.world.state["res"]["render_target"]["depth"] > 0).any()
+    app.world.spawn(Camera3d(vp_max=(0.5, 1.0)), *transform_bundle())
+    with pytest.raises(NotImplementedError, match="C3"):
+        app.update(dt=1 / 60)

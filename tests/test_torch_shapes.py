@@ -166,9 +166,9 @@ def test_general_route_refusals():
         tm3d.Mesh3dPlugin(backend="cuda")
     with pytest.raises(ValueError, match="group route"):
         tm3d.Mesh3dPlugin(backend="xla", shards=2)
-    # the group route draws smooth meshes (on the shade records), and
-    # anisotropic ones since A4b, and still refuses depth bias, naming its
-    # route
+    # the group route draws smooth meshes (on the shade records),
+    # anisotropic ones since A4b and depth-biased ones since A8's rest; a
+    # deferred pass refuses several cameras, naming its route and C3
     import torch_3d_shapes
     from bevy_tpu_torch.transform import transform_bundle
     app = torch_3d_shapes.build_app(device="cpu", backend="auto", **app_kw)
@@ -180,8 +180,17 @@ def test_general_route_refusals():
     app.update(dt=1 / 60)
     app.world.spawn(tm3d.Mesh3d(mesh=0), tm3d.MeshMaterial(depth_bias=1.0),
                     *transform_bundle())
-    with pytest.raises(NotImplementedError, match="group route.*A8"):
-        app.update(dt=1 / 60)
+    app.update(dt=1 / 60)
+    assert (app.world.state["res"]["render_target"]["depth"] > 0).any()
+    from bevy_tpu_torch.render.camera import Camera3d
+    from bevy_tpu_torch.render.deferred import DeferredLightingPlugin
+    dapp = _bare_app(**app_kw)
+    dapp.add_plugins(tm3d.Mesh3dPlugin(deferred=True),
+                     DeferredLightingPlugin())
+    for _ in range(2):
+        dapp.world.spawn(Camera3d(), *transform_bundle())
+    with pytest.raises(NotImplementedError, match="deferred route.*C3"):
+        dapp.update(dt=1 / 60)
 
 
 def _bare_app(width, height):

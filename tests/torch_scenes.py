@@ -268,6 +268,7 @@ SCENE_MODULES = {
     "text": ".render.text", "rich": ".render.rich_text",
     "gizmos": ".render.gizmos", "tilemap": ".render.tilemap",
     "system": ".ecs.system", "post": ".render.post",
+    "trans": ".render.transmission",
     "skybox": ".render.skybox", "fog": ".render.fog",
     "atmo": ".render.atmosphere", "env": ".render.environment",
     "irr": ".render.irradiance", "ssr": ".render.ssr",
@@ -533,6 +534,11 @@ def golden_key(name):
     if fn in (post_world, aa_world, fog_world, ssr_world):
         text += "\n".join(["", inspect.getsource(_app_3d),
                            inspect.getsource(_run)])
+    if fn in A8_BUILDERS:
+        text += "\n".join([""] + [inspect.getsource(h) for h in A8_HELPERS]
+                          + [repr(ROT_UP), repr(GOLDEN_BACKEND.get(name))])
+    if fn in (occl_world, budget_world):
+        text += inspect.getsource(_cube_field)
     return hashlib.sha256(text.encode()).hexdigest()[:16]
 
 
@@ -996,3 +1002,371 @@ def screen_views(asarray, frame=0):
                directional_light=ns(color=asarray(li["color"]),
                                     illuminance=asarray(li["illuminance"])))
     return cam, light
+
+
+# ---------------------------------------------------------------------------
+# A8's rest: cameras and viewports, OIT, transmission, custom materials,
+# depth bias, two-phase occlusion, the BVH cull, LOD chains and the cluster
+# DAG. Each builder takes the modules `m` (SCENE_MODULES of either
+# package), app_kw for App (the port's {"device": ...}) and plugin_kw for
+# Mesh3dPlugin (and TransmissionPlugin): the JAX package's backend. Each
+# runs its frames and returns (sRGB image (H, W, 4) int, app); occl_world
+# returns the list of its frames' images.
+
+ROT_UP = (float(np.sin(np.pi / 4)), 0.0, 0.0, float(np.cos(np.pi / 4)))
+
+
+def _a8_app(m, app_kw, capacity, width, height, plugin, *plugins):
+    app = m["root"].App(capacity=capacity, **app_kw)
+    app.add_plugins(m["time"].TimePlugin(), m["tf"].TransformPlugin(),
+                    m["render"].RenderPlugin(width=width, height=height),
+                    plugin, *plugins)
+    return app
+
+
+def _look_at(eye):
+    """xyzw quaternion turning -z toward the origin from `eye` (a yaw
+    about +y, then a pitch about +x)."""
+    ex, ey, ez = eye
+    yaw = np.arctan2(ex, ez)
+    pitch = -np.arctan2(ey, max(np.hypot(ex, ez), 1e-6))
+    qy = np.array([0.0, np.sin(yaw / 2), 0.0, np.cos(yaw / 2)])
+    qx = np.array([np.sin(pitch / 2), 0.0, 0.0, np.cos(pitch / 2)])
+    x1, y1, z1, w1 = qy
+    x2, y2, z2, w2 = qx
+    q = np.array([w1 * x2 + x1 * w2 + y1 * z2 - z1 * y2,
+                  w1 * y2 - x1 * z2 + y1 * w2 + z1 * x2,
+                  w1 * z2 + x1 * y2 - y1 * x2 + z1 * w2,
+                  w1 * w2 - x1 * x2 - y1 * y2 - z1 * z2])
+    return tuple(float(v) for v in q / np.linalg.norm(q))
+
+
+def split_world(m, app_kw, plugin_kw, kind, width=160, height=96):
+    """Cameras and viewports, one frame. "two": tests/test_viewport.py's
+    two side-by-side cameras (order 0 on the left half at z 3, order 1 on
+    the right half at z 6) over a red cube; "layers": the same with the
+    right camera's RenderLayers 2, so its half stays clear although the
+    left camera's cube reaches past the split; "four": examples/
+    split_screen.py's four quarter viewports in `order` around a cube, a
+    sphere and a ground plane."""
+    m3, tb, cam = m["m3"], m["tf"].transform_bundle, m["cam"]
+    plugin = m3.Mesh3dPlugin(**plugin_kw)
+    app = _a8_app(m, app_kw, 32, width, height, plugin)
+    if kind == "four":
+        cube = plugin.add_mesh(m["mesh"].cuboid(1.2, 1.2, 1.2))
+        ball = plugin.add_mesh(m["mesh"].uv_sphere(0.8, 10, 14))
+        ground = plugin.add_mesh(m["mesh"].plane(8.0, 8.0))
+        views = [((0.0, 0.0), (0.5, 0.5), (0.0, 2.5, 6.0)),
+                 ((0.5, 0.0), (1.0, 0.5), (6.0, 2.5, 0.0)),
+                 ((0.0, 0.5), (0.5, 1.0), (0.0, 2.5, -6.0)),
+                 ((0.5, 0.5), (1.0, 1.0), (-6.0, 2.5, 0.0))]
+        # spawned out of order: the pass sorts by `order`
+        for i in (2, 0, 3, 1):
+            mn, mx, eye = views[i]
+            app.world.spawn(cam.Camera3d(order=i, vp_min=mn, vp_max=mx),
+                            *tb(translation=eye, rotation=_look_at(eye)))
+        app.world.spawn(m3.Mesh3d(mesh=ground),
+                        m3.MeshMaterial(base_color=(0.35, 0.6, 0.35, 1.0)),
+                        *tb(translation=(0.0, -1.2, 0.0)))
+        app.world.spawn(m3.Mesh3d(mesh=cube),
+                        m3.MeshMaterial(base_color=(0.9, 0.25, 0.2, 1.0)),
+                        *tb(rotation=(0.0, 0.38, 0.0, 0.925)))
+        app.world.spawn(m3.Mesh3d(mesh=ball),
+                        m3.MeshMaterial(base_color=(0.2, 0.35, 0.9, 1.0)),
+                        *tb(translation=(1.8, 0.0, -1.0)))
+        app.world.spawn(m3.DirectionalLight(illuminance=1.0),
+                        *tb(rotation=_look_at((2.0, 4.0, 3.0))))
+    else:
+        cube = plugin.add_mesh(m["mesh"].cuboid(1.0, 1.0, 1.0))
+        app.world.spawn(cam.Camera3d(order=0, vp_min=(0.0, 0.0),
+                                     vp_max=(0.5, 1.0)),
+                        *tb(translation=(0.0, 0.0, 3.0)))
+        app.world.spawn(cam.Camera3d(order=1, vp_min=(0.5, 0.0),
+                                     vp_max=(1.0, 1.0),
+                                     layers=2 if kind == "layers" else 1),
+                        *tb(translation=(0.0, 0.0, 6.0)))
+        app.world.spawn(m3.Mesh3d(mesh=cube),
+                        m3.MeshMaterial(base_color=(1.0, 0.1, 0.1, 1.0)),
+                        *tb(rotation=(0.1, 0.3, 0.0, 0.949)))
+        app.world.spawn(m3.DirectionalLight(illuminance=1.0), *tb())
+    return _run(m, app, 1)
+
+
+def oit_world(m, app_kw, plugin_kw, kind, width=160, height=96):
+    """Weighted-blended OIT, one frame. "panes": tests/test_oit.py's
+    scene: an opaque backdrop, a red pane (alpha 0.5) at z 2 and a blue
+    one at z 3 over it, and a red pane (alpha 0.9) behind the backdrop,
+    which must not show; "blend": examples/blend_modes.py's spheres of
+    alpha 1.0 (the opaque phase), 0.6 and 0.25 over a slab."""
+    m3, tb = m["m3"], m["tf"].transform_bundle
+    plugin = m3.Mesh3dPlugin(**plugin_kw)
+    app = _a8_app(m, app_kw, 32, width, height, plugin)
+    if kind == "panes":
+        cube = plugin.add_mesh(m["mesh"].cuboid(1.0, 1.0, 1.0))
+        app.world.spawn(m["cam"].Camera3d(), *tb(translation=(0, 0, 8.0)))
+        app.world.spawn(m3.DirectionalLight(illuminance=1.0),
+                        *tb(rotation=(-0.38, 0.0, 0.0, 0.92)))
+        app.world.spawn(m3.Mesh3d(mesh=cube),
+                        m3.MeshMaterial(base_color=(0.9, 0.9, 0.9, 1.0)),
+                        *tb(translation=(0.0, 0.0, -2.0),
+                            scale=(10.0, 8.0, 0.5)))
+        for color, pos in (((1.0, 0.1, 0.1, 0.5), (0.0, 0.0, 2.0)),
+                           ((0.1, 0.1, 1.0, 0.5), (0.8, 0.4, 3.0)),
+                           ((1.0, 0.1, 0.1, 0.9), (0.0, 0.0, -5.0))):
+            app.world.spawn(m3.Mesh3d(mesh=cube),
+                            m3.MeshMaterial(base_color=color),
+                            *tb(translation=pos, scale=(3.0, 2.0, 0.1)))
+    else:
+        sphere = plugin.add_mesh(m["mesh"].uv_sphere(0.6, 20, 14))
+        slab = plugin.add_mesh(m["mesh"].cuboid(6.0, 0.2, 4.0))
+        app.insert_resource(m3.AmbientLight(brightness=0.25))
+        app.world.spawn(m["cam"].Camera3d(), *tb(translation=(0, 1.2, 4)))
+        app.world.spawn(m3.DirectionalLight(),
+                        *tb(rotation=(-0.35, 0.0, 0.0, 0.94)))
+        app.world.spawn(m3.Mesh3d(mesh=slab),
+                        m3.MeshMaterial(base_color=(0.5, 0.5, 0.55, 1.0)),
+                        *tb(translation=(0.0, -0.8, 0.0)))
+        for x, a in ((-1.5, 1.0), (0.0, 0.6), (1.5, 0.25)):
+            app.world.spawn(m3.Mesh3d(mesh=sphere),
+                            m3.MeshMaterial(base_color=(0.9, 0.35, 0.2, a)),
+                            *tb(translation=(x, 0.0, 0.0)))
+    return _run(m, app, 1)
+
+
+def glass_world(m, app_kw, plugin_kw, kind):
+    """Specular and diffuse transmission (TransmissionPlugin), one frame.
+    "tint": tests/test_transmission.py's red-tinted glass panel before a
+    green wall (160x96); "volume": tests/test_volume_transmission.py's
+    thick glass (thickness 2, attenuation distance 1, a green attenuation
+    colour) before a white wall (160x96); "translucent": its panel with
+    diffuse_transmission 1 lit only from behind (128x96)."""
+    m3, tb = m["m3"], m["tf"].transform_bundle
+    plugin = m3.Mesh3dPlugin(**plugin_kw)
+    cube = plugin.add_mesh(m["mesh"].cuboid(1.0, 1.0, 1.0))
+    back = kind == "translucent"
+    app = _a8_app(m, app_kw, 32, 128 if back else 160, 96, plugin,
+                  m["trans"].TransmissionPlugin(plugin, **plugin_kw))
+    app.insert_resource(m3.AmbientLight(brightness=0.02 if back else 0.25))
+    app.world.spawn(m["cam"].Camera3d(),
+                    *tb(translation=(0, 0, 4 if back else 5)))
+    if back:
+        app.world.spawn(m3.DirectionalLight(illuminance=3.0),
+                        *tb(rotation=(0.0, 1.0, 0.0, 0.0)))
+        app.world.spawn(m3.Mesh3d(mesh=cube), m3.MeshMaterial(
+            base_color=(0.9, 0.85, 0.7, 1.0), diffuse_transmission=1.0),
+            *tb(scale=(2.0, 2.0, 0.1)))
+        return _run(m, app, 1)
+    app.world.spawn(m3.DirectionalLight(illuminance=1.0),
+                    *tb(rotation=(-0.3, 0.2, 0.0, 0.93)))
+    wall = dict(base_color=(0.1, 0.9, 0.1, 1.0), emissive=(0.0, 0.4, 0.0)) \
+        if kind == "tint" else dict(base_color=(0.9, 0.9, 0.9, 1.0),
+                                    emissive=(0.5, 0.5, 0.5))
+    app.world.spawn(m3.Mesh3d(mesh=cube), m3.MeshMaterial(**wall),
+                    *tb(translation=(0.0, 0.0, -2.0), scale=(8.0, 5.0, 0.2)))
+    glass = dict(base_color=(1.0, 0.25, 0.25, 1.0)) if kind == "tint" \
+        else dict(base_color=(1.0, 1.0, 1.0, 1.0), thickness=2.0,
+                  attenuation_distance=1.0, attenuation_color=(0.2, 1.0, 0.2))
+    app.world.spawn(m3.Mesh3d(mesh=cube), m3.MeshMaterial(
+        specular_transmission=1.0, perceptual_roughness=0.05, ior=1.5,
+        **glass), *tb(translation=(0.0, 0.0, 1.0), scale=(2.0, 2.0, 0.1)))
+    return _run(m, app, 1)
+
+
+def _xp(m):
+    """The array namespace a material function of `m`'s package computes
+    with (user shading code takes its package's arrays)."""
+    return getattr(m["m3"], "jnp", None) or m["m3"].torch
+
+
+def toon_material(xp):
+    """tests/test_custom_material.py's two-band toon shading."""
+    def fn(n, mat, ok, lv):
+        d = -(n[..., 0] * lv[0] + n[..., 1] * lv[1] + n[..., 2] * lv[2])
+        band = xp.where(d > 0.5, 1.0, xp.where(d > 0.1, 0.55, 0.18))
+        return xp.concatenate([mat[..., 0:3] * band[..., None],
+                               mat[..., 3:4]], -1)
+    return fn
+
+
+def quantize_extension(xp):
+    """tests/test_extended_material.py's quantizing extension."""
+    def fn(rgba, n, mat, ok, lv):
+        return xp.concatenate([xp.round(rgba[..., :3] * 3.0) / 3.0,
+                               rgba[..., 3:4]], -1)
+    return fn
+
+
+def shader_world(m, app_kw, plugin_kw, kind, width=128, height=96):
+    """Custom materials (Mesh3dPlugin(material_fn=...)), one frame of a
+    sphere: "toon" (toon_material), "quantize" (extended_material over
+    quantize_extension), "identity" (extended_material with a
+    pass-through extension), "standard" (no material_fn)."""
+    m3, tb = m["m3"], m["tf"].transform_bundle
+    xp = _xp(m)
+    fn = {"toon": lambda: toon_material(xp),
+          "quantize": lambda: m3.extended_material(quantize_extension(xp)),
+          "identity": lambda: m3.extended_material(
+              lambda rgba, *a: rgba),
+          "standard": lambda: None}[kind]()
+    plugin = m3.Mesh3dPlugin(material_fn=fn, **plugin_kw)
+    sphere = plugin.add_mesh(m["mesh"].uv_sphere(0.9, 24, 16))
+    app = _a8_app(m, app_kw, 8, width, height, plugin)
+    app.world.spawn(m["cam"].Camera3d(), *tb(translation=(0, 0, 3)))
+    app.world.spawn(m3.DirectionalLight(illuminance=1.0),
+                    *tb(rotation=(-0.3, 0.2, 0.0, 0.93)))
+    app.world.spawn(m3.Mesh3d(mesh=sphere),
+                    m3.MeshMaterial(base_color=(0.9, 0.4, 0.2, 1.0)),
+                    *tb())
+    return _run(m, app, 1)
+
+
+def bias_world(m, app_kw, plugin_kw, bias, width=128, height=96):
+    """tests/test_depth_bias_uvt.py's two exactly coplanar quads, red, then
+    green with depth_bias `bias`; one frame."""
+    m3, tb = m["m3"], m["tf"].transform_bundle
+    plugin = m3.Mesh3dPlugin(**plugin_kw)
+    quad = plugin.add_mesh(m["mesh"].plane(2.0, 2.0))
+    app = _a8_app(m, app_kw, 16, width, height, plugin)
+    app.insert_resource(m3.AmbientLight(brightness=0.8))
+    app.world.spawn(m["cam"].Camera3d(), *tb(translation=(0, 0, 4)))
+    app.world.spawn(m3.DirectionalLight(illuminance=0.3),
+                    *tb(rotation=(-0.3, 0.2, 0.0, 0.93)))
+    app.world.spawn(m3.Mesh3d(mesh=quad),
+                    m3.MeshMaterial(base_color=(1.0, 0.1, 0.1, 1.0)),
+                    *tb(rotation=ROT_UP))
+    app.world.spawn(m3.Mesh3d(mesh=quad),
+                    m3.MeshMaterial(base_color=(0.1, 1.0, 0.1, 1.0),
+                                    depth_bias=bias), *tb(rotation=ROT_UP))
+    return _run(m, app, 1)
+
+
+def _cube_field(m, app_kw, plugin, n):
+    """tests/test_occlusion.py's scene at 160x96: a near wall before `n`
+    random cubes (seed 0), one camera, one light."""
+    m3, tb = m["m3"], m["tf"].transform_bundle
+    cube = plugin.add_mesh(m["mesh"].cuboid(1.0, 1.0, 1.0))
+    app = _a8_app(m, app_kw, 256, 160, 96, plugin)
+    app.world.spawn(m["cam"].Camera3d(), *tb(translation=(0, 0, 14.0)))
+    app.world.spawn(m3.DirectionalLight(illuminance=1.0),
+                    *tb(rotation=(-0.38, 0.0, 0.0, 0.92)))
+    rng = np.random.RandomState(0)
+    app.world.spawn(m3.Mesh3d(mesh=cube),
+                    m3.MeshMaterial(base_color=(0.3, 0.5, 0.8, 1.0)),
+                    *tb(translation=(0.0, 0.0, 6.0), scale=(6.0, 4.0, 0.5)))
+    for _ in range(n):
+        app.world.spawn(m3.Mesh3d(mesh=cube), m3.MeshMaterial(
+            base_color=tuple(float(c) for c in rng.uniform(0.2, 1.0, 3))
+            + (1.0,)), *tb(translation=(
+                float(rng.uniform(-12, 12)), float(rng.uniform(-7, 7)),
+                float(rng.uniform(-12, 0)))))
+    return app
+
+
+def occl_world(m, app_kw, plugin_kw, occlusion, frames=3, n=120):
+    """_cube_field with Mesh3dPlugin(occlusion_cull=occlusion,
+    phase_budget=512); `frames` frames. Returns (the frames' images,
+    app)."""
+    app = _cube_field(m, app_kw, m["m3"].Mesh3dPlugin(
+        occlusion_cull=occlusion, phase_budget=512, **plugin_kw), n)
+    imgs = []
+    for _ in range(frames):
+        app.update(dt=1 / 60)
+        imgs.append(m["plug"].frame_image(app).astype(int))
+    return imgs, app
+
+
+def budget_world(m, app_kw, plugin_kw, budget, n=120):
+    """_cube_field without occlusion culling, one frame, with
+    Mesh3dPlugin(visible_budget=budget): the visible clusters compacted
+    to `budget` (the rest dropped, counted into pair_overflow)."""
+    return _run(m, _cube_field(m, app_kw, m["m3"].Mesh3dPlugin(
+        visible_budget=budget, **plugin_kw), n), 1)
+
+
+def bvh_world(m, app_kw, plugin_kw, bvh, width=128, height=96):
+    """tests/test_bvh_cull.py's integration scene: a sphere of 3,072
+    triangles filling a close-up (128x96 there), part of it off screen,
+    Mesh3dPlugin(bvh_cull=bvh); one frame."""
+    m3, tb = m["m3"], m["tf"].transform_bundle
+    plugin = m3.Mesh3dPlugin(bvh_cull=bvh, **plugin_kw)
+    mesh = plugin.add_mesh(m["mesh"].uv_sphere(2.0, 48, 32))
+    app = _a8_app(m, app_kw, 16, width, height, plugin)
+    app.insert_resource(m3.AmbientLight(brightness=0.3))
+    app.world.spawn(m["cam"].Camera3d(), *tb(translation=(0.0, 0.0, 2.6)))
+    app.world.spawn(m3.DirectionalLight(illuminance=1.0),
+                    *tb(rotation=(-0.3, 0.2, 0.0, 0.93)))
+    app.world.spawn(m3.Mesh3d(mesh=mesh),
+                    m3.MeshMaterial(base_color=(0.8, 0.5, 0.3, 1.0)), *tb())
+    return _run(m, app, 1)
+
+
+def lod_world(m, app_kw, plugin_kw, threshold, lods=3):
+    """tests/test_meshlet_lod.py's scene: a near and a far sphere of one
+    3-level LOD chain (add_mesh(lods=3)) at a `threshold` px screen error,
+    160x120; one frame."""
+    m3, tb = m["m3"], m["tf"].transform_bundle
+    plugin = m3.Mesh3dPlugin(**plugin_kw)
+    mesh = plugin.add_mesh(m["mesh"].uv_sphere(0.8, 24, 16), lods=lods,
+                           lod_threshold_px=threshold)
+    app = _a8_app(m, app_kw, 64, 160, 120, plugin)
+    app.insert_resource(m3.AmbientLight(brightness=0.1))
+    app.world.spawn(m["cam"].Camera3d(), *tb(translation=(0, 0, 4)))
+    app.world.spawn(m3.DirectionalLight(illuminance=1.5),
+                    *tb(rotation=(-0.3, 0.2, 0.0, 0.93)))
+    app.world.spawn(m3.Mesh3d(mesh=mesh), m3.MeshMaterial(
+        base_color=(0.8, 0.3, 0.2, 1.0)), *tb((0.0, 0.0, 0.0)))
+    app.world.spawn(m3.Mesh3d(mesh=mesh), m3.MeshMaterial(
+        base_color=(0.2, 0.4, 0.9, 1.0)), *tb((1.5, 0.5, -30.0)))
+    return _run(m, app, 1)
+
+
+def dag_world(m, app_kw, plugin_kw, dag, dist=6.0, width=192, height=108):
+    """tests/test_cluster_dag.py's hero sphere (48 x 24 sectors; 192x108
+    there) through add_mesh_dag(threshold_px=2) (`dag`) or add_mesh; one
+    frame."""
+    m3, tb = m["m3"], m["tf"].transform_bundle
+    plugin = m3.Mesh3dPlugin(**plugin_kw)
+    mesh = m["mesh"].uv_sphere(radius=1.0, sectors=48, stacks=24)
+    mid = plugin.add_mesh_dag(mesh, threshold_px=2.0) if dag \
+        else plugin.add_mesh(mesh)
+    app = _a8_app(m, app_kw, 8, width, height, plugin)
+    app.insert_resource(m3.AmbientLight(brightness=0.35))
+    app.world.spawn(m["cam"].Camera3d(), *tb(translation=(0.0, 0.0, dist)))
+    app.world.spawn(m3.DirectionalLight(illuminance=1.0), *tb())
+    app.world.spawn(m3.Mesh3d(mesh=mid), m3.MeshMaterial(
+        base_color=(0.8, 0.3, 0.2, 1.0)), *tb())
+    return _run(m, app, 1)
+
+
+A8_BUILDERS = (split_world, oit_world, glass_world, shader_world,
+               bias_world, occl_world, budget_world, bvh_world, lod_world,
+               dag_world)
+A8_HELPERS = (_a8_app, _look_at, _xp, toon_material, quantize_extension,
+              _run)
+GOLDEN_SCENES.update({
+    "smooth_srec": (shade_record_world, ("smooth",)),
+    "split_two": (split_world, ("two",)),
+    "split_layers": (split_world, ("layers",)),
+    "split_four": (split_world, ("four",)),
+    "oit_panes": (oit_world, ("panes",)),
+    "oit_blend": (oit_world, ("blend",)),
+    "glass_tint": (glass_world, ("tint",)),
+    "glass_volume": (glass_world, ("volume",)),
+    "glass_translucent": (glass_world, ("translucent",)),
+    "shader_toon": (shader_world, ("toon",)),
+    "shader_quantize": (shader_world, ("quantize",)),
+    "bias_green": (bias_world, (1.0,)),
+    "bias_red": (bias_world, (-1.0,)),
+    "occl_f3": (occl_world, (True,)),
+    "budget_64": (budget_world, (64,)),
+    "bvh_f1": (bvh_world, (True,)),
+    "lod_15": (lod_world, (1.5,)),
+    "lod_coarse": (lod_world, (10000.0,)),
+    "dag_f1": (dag_world, (True,)),
+})
+# the JAX route each stored output renders through: the split-screen
+# worlds through the general route (backend="xla"; the JAX group route
+# cannot render a viewport, ROADMAP C3), every other through the Pallas
+# kernels in interpret mode
+GOLDEN_BACKEND = {name: "xla" for name in ("split_two", "split_layers",
+                                           "split_four")}
