@@ -20,13 +20,20 @@ torch.backends.cudnn.allow_tf32 = False
 __version__ = "0.1.0"
 
 from bevy_tpu_torch.app import App, Plugin  # noqa: E402,F401
+from bevy_tpu_torch.app.app import AppExit  # noqa: E402,F401
 from bevy_tpu_torch.app.main_schedule import (  # noqa: E402,F401
     First, PreUpdate, StateTransition, RunFixedMainLoop, Update, SpawnScene,
     PostUpdate, Last, Startup, PreStartup, PostStartup, FixedUpdate,
     FixedFirst, FixedPreUpdate, FixedPostUpdate, FixedLast,
 )
 from bevy_tpu_torch.ecs import (  # noqa: E402,F401
-    component, field, resource, World, system, Schedule, Query, Read, Res,
-    ResMut, With, Without, Entity, Commands, message, MessageReader,
-    MessageWriter,
+    component, field, resource, World, system, host_system, Schedule, Query,
+    QueryBuilder, Read, Res, ResMut, Local, With, Without, Changed, Added,
+    Removed, Entity, Commands, message, MessageReader, MessageWriter,
+)
+from bevy_tpu_torch.ecs.observer import (  # noqa: E402,F401
+    LifecycleMask, On, OnAdd, OnInsert, OnRemove, Trigger, event,
+)
+from bevy_tpu_torch.state import (  # noqa: E402,F401
+    CurrentState, NextState, OnEnter, OnExit, add_state, in_state,
 )

@@ -12,3 +12,4 @@ class Plugin:
     @property
     def name(self):
         return type(self).__name__
+

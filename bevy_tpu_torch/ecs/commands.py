@@ -10,9 +10,8 @@ reference's deferred semantics). Nothing here reads the device from the
 host: free rows are claimed with a cumsum rank and a scatter at static
 shapes, and the World's host mirrors are only marked stale.
 
-Not ported: required components (`#[require]`; the port's `component`
-has no `requires`), so `spawn` and `insert` add exactly the components
-given.
+Required components (`#[require]`) come along: `spawn` adds them with
+their defaults, `insert` only to rows that lack them.
 """
 
 from __future__ import annotations
@@ -22,7 +21,9 @@ from typing import Any, List
 import torch
 
 from bevy_tpu_torch.ecs._state import set_in
-from bevy_tpu_torch.ecs.component import ComponentInstance, get_spec
+from bevy_tpu_torch.ecs.component import (
+    ComponentInstance, expand_required, get_spec,
+)
 
 
 class Commands:
@@ -32,6 +33,13 @@ class Commands:
         budget of `spawn`."""
         self.spawn_comps = [get_spec(c) for c in spawn_comps]
         self.budget = budget
+
+    def reads(self):
+        return set()
+
+    def writes(self):
+        # deferred, as the reference's: no conflict with component access
+        return set()
 
     def build(self, state, world, sysctx):
         return CommandsView(self, world)
@@ -69,11 +77,16 @@ class CommandsView:
                              "(declare via Commands(budget=N) or "
                              "spawn(budget=N))")
         count = budget if count is None else count
-        self._ops.append(("spawn", components, count, budget))
+        self._ops.append(("spawn", expand_required(components), count,
+                          budget))
 
     def insert(self, mask, *components: ComponentInstance):
-        """Add or overwrite components on every row where `mask` is True."""
-        self._ops.append(("insert", mask, components))
+        """Add or overwrite components on every row where `mask` is True;
+        required components go only to rows that lack them."""
+        expanded = expand_required(components)
+        self._ops.append(("insert", mask, tuple(expanded[:len(components)])))
+        for inst in expanded[len(components):]:
+            self._ops.append(("insert_missing", mask, (inst,)))
 
     def remove(self, mask, *comps):
         self._ops.append(("remove", mask, [get_spec(c) for c in comps]))
@@ -105,6 +118,11 @@ class CommandsView:
                 _, mask, components = op
                 state = _apply_insert(state, mask, components, tick)
                 added.update(get_spec(c).name for c in components)
+            elif kind == "insert_missing":
+                _, mask, (inst,) = op
+                have = state["comp"][inst.spec.name]["has"]
+                state = _apply_insert(state, mask & ~have, [inst], tick)
+                added.add(inst.spec.name)
             elif kind == "remove":
                 _, mask, specs = op
                 for spec in specs:

@@ -29,6 +29,12 @@ class MessageWriter:
         self.spec = get_spec(msg)
         self.budget = budget
 
+    def reads(self):
+        return set()
+
+    def writes(self):
+        return {f"msg:{self.spec.name}"}
+
     def build(self, state, world, sysctx):
         return MessageWriterView(self)
 
@@ -60,7 +66,10 @@ class MessageWriterView:
         for count, vals in self._sends:
             count = budget if count is None else count
             cur = store["cur"]
-            rows = store["count"][cur] + lane
+            # the current buffer's count by a (1,) gather: indexing with
+            # the 0-d `cur` would read it back to the host
+            rows = store["count"].index_select(0, cur.long().reshape(1)) \
+                + lane
             valid = (lane < count) & (rows < cap)
             # flat slot in the (2 * cap) buffer; 2 * cap drops the write
             flat = torch.where(valid, cur * cap + rows, 2 * cap).long()
@@ -90,6 +99,12 @@ def _put(buf, flat, val):
 class MessageReader:
     def __init__(self, msg):
         self.spec = get_spec(msg)
+
+    def reads(self):
+        return {f"msg:{self.spec.name}"}
+
+    def writes(self):
+        return set()
 
     def build(self, state, world, sysctx):
         return MessageReaderView(state["msg"][self.spec.name],

@@ -4,12 +4,14 @@
 Storage model: global dense SoA pools. Every registered component owns,
 per field, one `(capacity, *shape)` tensor plus a `(capacity,)` membership
 mask; entity id == row index. The state dict keeps the JAX package's
-layout (`ent`, `comp`, `res`, `msg`, `sys`, `tick`, `frame`), so the two
-packages' worlds convert into each other key for key.
+layout (`ent`, `comp`, `res`, `msg`, `obs`, `sys`, `tick`, `frame`), so
+the two packages' worlds convert into each other key for key.
 
-Structural edits (register, spawn) happen on the host between frames and
-write the pools in place; numpy mirrors track liveness, and every edit
-bumps `structure_version` (what the App's prepare hooks key on).
+Structural edits (register, spawn, insert, remove, despawn, set_field)
+happen on the host between frames and write the pools in place; numpy
+mirrors track liveness and generations, and registrations, spawns and a
+component's first rows bump `structure_version` (what the App's prepare
+hooks key on).
 Device-tier Commands (ecs/commands.py) edit liveness inside a frame
 without touching the mirrors: they mark them stale, and the host calls
 that read them (`spawn_batch`, `query_rows`, `entity_count`) copy them
@@ -25,7 +27,8 @@ import numpy as np
 import torch
 
 from bevy_tpu_torch.ecs.component import (
-    ComponentInstance, ComponentSpec, get_spec, np_dtype,
+    ComponentInstance, ComponentSpec, component, expand_required, get_spec,
+    np_dtype,
 )
 from bevy_tpu_torch.ecs.entity import Entity
 
@@ -58,11 +61,13 @@ class World:
             "comp": {},
             "res": {},
             "msg": {},
+            "obs": {},
             "sys": {},
             "tick": torch.tensor(1, dtype=torch.int32, device=dev),
             "frame": torch.tensor(0, dtype=torch.int32, device=dev),
         }
         self._host_alive = np.zeros(self.capacity, bool)
+        self._host_gen = np.zeros(self.capacity, np.int32)
         self._host_has: Dict[str, np.ndarray] = {}
         # stale host mirrors: set by device-tier Commands, with the
         # components they spawned or inserted since the last copy-back
@@ -94,6 +99,7 @@ class World:
         if not self._device_dirty:
             return
         self._host_alive = self.state["ent"]["alive"].cpu().numpy().copy()
+        self._host_gen = self.state["ent"]["generation"].cpu().numpy().copy()
         for name in self.specs:
             self._host_has[name] = \
                 self.state["comp"][name]["has"].cpu().numpy().copy()
@@ -123,6 +129,9 @@ class World:
         }
         self._host_has[spec.name] = np.zeros(n, bool)
         self.structure_version += 1
+        # required components get storage too (ref: #[require])
+        for req in spec.requires:
+            self.register_component(get_spec(req))
         return spec
 
     def add_message(self, msg, capacity: int = 1024) -> ComponentSpec:
@@ -165,6 +174,28 @@ class World:
         self.structure_version += 1
         return name
 
+    def has_resource(self, res) -> bool:
+        return _res_name(res) in self.state["res"]
+
+    def resource(self, res):
+        """Host copy of a resource: a namespace of numpy values."""
+        val = self.state["res"][_res_name(res)]
+        if isinstance(val, dict):
+            return SimpleNamespace(**{k: _host(v) for k, v in val.items()})
+        return _host(val)
+
+    def resource_raw(self, res):
+        return self.state["res"][_res_name(res)]
+
+    def set_resource_field(self, res, fname: str, value):
+        """Host-tier write of one resource field (a new tensor of the
+        field's dtype)."""
+        name = _res_name(res)
+        store = dict(self.state["res"][name])
+        old = store[fname]
+        store[fname] = as_tensor(value, old.dtype, self.device) \
+            if isinstance(old, torch.Tensor) else value
+        self.state["res"][name] = store
     # ------------------------------------------------------------------
     # host-tier structural ops
 
@@ -187,6 +218,7 @@ class World:
                        else pad0(v)) for k, v in c.items()}
             for name, c in self.state["comp"].items()}
         self._host_alive = np.pad(self._host_alive, (0, pad))
+        self._host_gen = np.pad(self._host_gen, (0, pad))
         for name in self._host_has:
             self._host_has[name] = np.pad(self._host_has[name], (0, pad))
         self.capacity = new_cap
@@ -194,13 +226,15 @@ class World:
 
     def spawn(self, *components: ComponentInstance) -> Entity:
         rows = self.spawn_batch(list(components), 1)
-        return Entity(int(rows[0]), 0)
+        return Entity(int(rows[0]), int(self._host_gen[rows[0]]))
 
     def spawn_batch(self, components: Sequence[ComponentInstance],
                     count: int) -> np.ndarray:
         """Bulk spawn `count` entities sharing a component set; field values
         may be scalars (broadcast) or (count, *shape) arrays. Returns row
-        indices (ref: World::spawn_batch)."""
+        indices (ref: World::spawn_batch). Required components are added
+        with their defaults."""
+        components = expand_required(components)
         self._sync()
         free = np.flatnonzero(~self._host_alive)
         if len(free) < count:
@@ -214,7 +248,9 @@ class World:
         self.state["tick"] = tick
         self.state["ent"]["alive"][trows] = True
         for inst in components:
-            spec = self.register_component(inst.spec)
+            spec = self.register_component(get_spec(inst))
+            if not isinstance(inst, ComponentInstance):
+                inst = ComponentInstance(spec, {})
             self._host_has[spec.name][rows] = True
             store = self.state["comp"][spec.name]
             for fname, fld in spec.fields.items():
@@ -232,9 +268,14 @@ class World:
         """Host-tier insert (ref: EntityWorldMut::insert): every field of
         each component on the entity's row (unspecified fields take their
         defaults), its membership and its added / changed ticks. Required
-        components are not ported (ROADMAP A7)."""
+        components the entity lacks come with their defaults; they never
+        overwrite ones it has."""
         self._sync()
         row = entity.index if isinstance(entity, Entity) else int(entity)
+        expanded = expand_required(components)
+        components = list(components) + [
+            inst for inst in expanded[len(components):]
+            if not self.has(row, inst.spec)]
         trow = torch.as_tensor([row], device=self.device)
         tick = self.state["tick"] + 1  # see spawn_batch
         self.state["tick"] = tick
@@ -252,8 +293,97 @@ class World:
             store["added"][trow] = tick
             store["changed"][trow] = tick
 
+    def remove(self, entity: Union[Entity, int], *comps):
+        """Host-tier remove: clears membership and stamps the `removed`
+        tick (what Removed filters and OnRemove observers read)."""
+        self._sync()
+        row = _row(entity)
+        tick = self.state["tick"] + 1  # see spawn_batch
+        self.state["tick"] = tick
+        for comp in comps:
+            spec = get_spec(comp)
+            if spec.name not in self.specs:
+                continue
+            self._host_has[spec.name][row] = False
+            store = self.state["comp"][spec.name]
+            store["has"][row] = False
+            store["removed"][row] = tick
+
+    def despawn(self, entity: Union[Entity, int]) -> bool:
+        """Host-tier despawn: the row dies, its generation bumps, and each
+        of its components is stamped removed. False if it was not alive."""
+        self._sync()
+        row = _row(entity)
+        if not self._host_alive[row]:
+            return False
+        self._host_alive[row] = False
+        self._host_gen[row] += 1
+        self.state["ent"]["alive"][row] = False
+        self.state["ent"]["generation"][row] += 1
+        tick = self.state["tick"] + 1  # see spawn_batch
+        self.state["tick"] = tick
+        for name in self.specs:
+            if self._host_has[name][row]:
+                self._host_has[name][row] = False
+                store = self.state["comp"][name]
+                store["has"][row] = False
+                store["removed"][row] = tick
+        return True
+
+    def set_field(self, entity: Union[Entity, int], comp, fname: str,
+                  value):
+        """Host-tier write of one field of an entity's component (its other
+        fields and membership stay); stamps the changed tick."""
+        row = _row(entity)
+        spec = get_spec(comp)
+        fld = spec.fields[fname]
+        store = self.state["comp"][spec.name]
+        tick = self.state["tick"] + 1  # see spawn_batch
+        self.state["tick"] = tick
+        store["f"][fname][row] = as_tensor(value, fld.dtype,
+                                           self.device).expand(fld.shape)
+        store["changed"][row] = tick
+
+    def clone_entity(self, entity: Union[Entity, int], without=()) -> Entity:
+        """Spawn a copy of an entity's components, minus `without` (ref:
+        EntityCloner): one read of the row a component, between frames."""
+        self._sync()
+        row = _row(entity)
+        if not self._host_alive[row]:
+            raise ValueError(f"clone_entity: entity row {row} is not alive")
+        skip = {get_spec(c).name for c in without}
+        insts = [ComponentInstance(spec, {
+            f: a[row].cpu().numpy()
+            for f, a in self.state["comp"][name]["f"].items()})
+            for name, spec in self.specs.items()
+            if name not in skip and self._host_has[name][row]]
+        return self.spawn(*insts)
+
     # ------------------------------------------------------------------
     # host-tier reads
+
+    @property
+    def num_alive(self) -> int:
+        self._sync()
+        return int(self._host_alive.sum())
+
+    def is_alive(self, entity: Entity) -> bool:
+        self._sync()
+        return bool(self._host_alive[entity.index]) and \
+            int(self._host_gen[entity.index]) == entity.generation
+
+    def has(self, entity: Union[Entity, int], comp) -> bool:
+        self._sync()
+        name = get_spec(comp).name
+        return name in self._host_has and bool(
+            self._host_has[name][_row(entity)])
+
+    def mask_of(self, *comps) -> torch.Tensor:
+        """Device (capacity,) mask of live rows holding every `comps`."""
+        m = self.state["ent"]["alive"]
+        for comp in comps:
+            m = m & self.state["comp"][get_spec(comp).name]["has"]
+        return m
 
     def get(self, entity: Union[Entity, int], comp):
         """Host copy of one entity's component as a namespace of numpy
@@ -276,3 +406,22 @@ class World:
 
     def entity_count(self, *comps) -> int:
         return len(self.query_rows(*comps))
+
+
+def _row(entity) -> int:
+    return entity.index if isinstance(entity, Entity) else int(entity)
+
+
+def _res_name(res) -> str:
+    return res if isinstance(res, str) else get_spec(res).name
+
+
+def _host(v):
+    return v.cpu().numpy() if isinstance(v, torch.Tensor) else v
+
+
+@component
+class Disabled:
+    """Marker excluding an entity from every query that does not mention
+    Disabled itself (ref: bevy_ecs entity_disabling.rs —
+    DefaultQueryFilters). Insert to disable, remove to re-enable."""

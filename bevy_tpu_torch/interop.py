@@ -58,18 +58,33 @@ def load_world(world, tree):
     state["res"] = res
     state["msg"] = {name: state_from_numpy(tree["msg"][name], dev)
                     for name in world.state["msg"]}
+    state["obs"] = {name: state_from_numpy(tree["obs"][name], dev)
+                    for name in world.state["obs"]}
     for key in ("tick", "frame"):
         state[key] = state_from_numpy(tree[key], dev)
-    jsys = {}
-    for sid, store in tree["sys"].items():
-        jsys.setdefault(sid.rsplit("#", 1)[0], []).append(store)
+    jsys = _by_name(tree["sys"])
     sys_ = {}
-    for sid, store in world.state["sys"].items():
-        match = jsys.get(sid.rsplit("#", 1)[0], [])
-        sys_[sid] = (dict(store, last_run=state_from_numpy(
-            match[0]["last_run"], dev)) if len(match) == 1 else store)
+    for name, sids in _by_name(world.state["sys"]).items():
+        match = jsys.get(name, [])
+        for k, sid in enumerate(sids):
+            store = world.state["sys"][sid]
+            if len(match) == len(sids):
+                jst = tree["sys"][match[k]]
+                store = dict(store, last_run=state_from_numpy(
+                    jst["last_run"], dev))
+                if store.get("local"):
+                    store["local"] = state_from_numpy(jst["local"], dev)
+            sys_[sid] = store
     state["sys"] = sys_
     world.state = state
     world.mark_device_dirty()
     world._sync()
     world.structure_version += 1
+
+
+def _by_name(sys_states):
+    """System ids ('name#counter') grouped by name, in counter order."""
+    out = {}
+    for sid in sorted(sys_states, key=lambda s: int(s.rsplit("#", 1)[1])):
+        out.setdefault(sid.rsplit("#", 1)[0], []).append(sid)
+    return out

@@ -25,8 +25,51 @@ def safe_normalize(v, eps=1e-12):
     return v * inv
 
 
+def quat_identity(shape=(), device="cpu"):
+    q = torch.zeros(tuple(shape) + (4,), dtype=torch.float32, device=device)
+    q[..., 3] = 1.0
+    return q
+
+
 def quat_normalize(q):
     return safe_normalize(q)
+
+
+def quat_from_rotation_z(angle):
+    angle = torch.as_tensor(angle, dtype=torch.float32)
+    s, c = torch.sin(angle * 0.5), torch.cos(angle * 0.5)
+    zeros = torch.zeros_like(s)
+    return torch.stack([zeros, zeros, s, c], -1)
+
+
+def quat_from_mat3(m):
+    """(..., 3, 3) -> (..., 4): Shepperd's method, branch-free."""
+    m00, m01, m02 = m[..., 0, 0], m[..., 0, 1], m[..., 0, 2]
+    m10, m11, m12 = m[..., 1, 0], m[..., 1, 1], m[..., 1, 2]
+    m20, m21, m22 = m[..., 2, 0], m[..., 2, 1], m[..., 2, 2]
+    tr = m00 + m11 + m22
+
+    def cand(a, b, c, d):
+        return torch.stack([a, b, c, d], -1)
+
+    def root(x):
+        return torch.sqrt(torch.clamp(x, min=1e-12)) * 2.0
+
+    s0 = root(1.0 + tr)
+    q0 = cand((m21 - m12) / s0, (m02 - m20) / s0, (m10 - m01) / s0, 0.25 * s0)
+    s1 = root(1.0 + m00 - m11 - m22)
+    q1 = cand(0.25 * s1, (m01 + m10) / s1, (m02 + m20) / s1, (m21 - m12) / s1)
+    s2 = root(1.0 - m00 + m11 - m22)
+    q2 = cand((m01 + m10) / s2, 0.25 * s2, (m12 + m21) / s2, (m02 - m20) / s2)
+    s3 = root(1.0 - m00 - m11 + m22)
+    q3 = cand((m02 + m20) / s3, (m12 + m21) / s3, 0.25 * s3, (m10 - m01) / s3)
+    use0 = tr > 0.0
+    use1 = ~use0 & (m00 > m11) & (m00 > m22)
+    use2 = ~use0 & ~use1 & (m11 > m22)
+    q = torch.where(use0[..., None], q0,
+                    torch.where(use1[..., None], q1,
+                                torch.where(use2[..., None], q2, q3)))
+    return quat_normalize(q)
 
 
 def quat_conjugate(q):

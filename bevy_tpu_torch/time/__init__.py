@@ -84,3 +84,36 @@ class TimePlugin(Plugin):
                     FrameCount):
             app.init_resource(res())
         app.add_systems(First, time_system)
+
+
+# ----------------------------------------------------------------------
+# Timer / Stopwatch as tensor helpers (ref: bevy_time Timer): a column of
+# timers is a dict of tensors, ticked in one batch of element-wise ops.
+
+def timer_new(duration, repeating=False, shape=(), device="cpu"):
+    return {
+        "elapsed": torch.zeros(shape, dtype=torch.float32, device=device),
+        "duration": torch.as_tensor(duration, dtype=torch.float32,
+                                    device=device).expand(shape).clone(),
+        "repeating": torch.as_tensor(repeating, dtype=torch.bool,
+                                     device=device).expand(shape).clone(),
+        "finished": torch.zeros(shape, dtype=torch.bool, device=device),
+    }
+
+
+def timer_tick(timer, dt):
+    """Returns (new_timer, just_finished mask)."""
+    elapsed = timer["elapsed"] + dt
+    finished = elapsed >= timer["duration"]
+    just = finished & ~timer["finished"] | (finished & timer["repeating"])
+    period = torch.clamp(timer["duration"], min=1e-9)
+    wrapped = torch.where(timer["repeating"] & finished,
+                          torch.remainder(elapsed, period), elapsed)
+    new = {
+        "elapsed": torch.where(timer["repeating"], wrapped,
+                               torch.minimum(elapsed, timer["duration"])),
+        "duration": timer["duration"],
+        "repeating": timer["repeating"],
+        "finished": finished & ~timer["repeating"],
+    }
+    return new, just

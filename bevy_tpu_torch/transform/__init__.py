@@ -6,12 +6,13 @@ bucket, as masked whole-column ops. Flat worlds (no ChildOf row) take the
 copy-only fast path.
 """
 
+import numpy as np
 import torch
 
 from bevy_tpu_torch.app.main_schedule import PostUpdate
 from bevy_tpu_torch.app.plugin import Plugin
 from bevy_tpu_torch.ecs.component import component, field
-from bevy_tpu_torch.ecs.entity import NULL_ENTITY
+from bevy_tpu_torch.ecs.entity import NULL_ENTITY, Entity
 from bevy_tpu_torch.ecs.query import Query, Read
 from bevy_tpu_torch.ecs.system import system
 from bevy_tpu_torch.math.affine import TRS, trs_compose
@@ -37,7 +38,7 @@ class GlobalTransform:
 class ChildOf:
     """Child→parent link (ref: ChildOf); `depth` is the propagation level
     bucket (1 = child of a root)."""
-    parent = field((), torch.int32, default=NULL_ENTITY)
+    parent = field((), torch.int32, default=NULL_ENTITY, entity_ref=True)
     depth = field((), torch.int32, default=0)
 
 
@@ -49,6 +50,36 @@ def transform_bundle(translation=(0.0, 0.0, 0.0),
         GlobalTransform(translation=translation, rotation=rotation,
                         scale=scale),
     ]
+
+
+def set_parent(world, child, parent):
+    """Host-tier reparenting: inserts ChildOf with the depth bucket one
+    below the parent's (ref: ChildOf insertion + Children bookkeeping)."""
+    child_row = child.index if isinstance(child, Entity) else int(child)
+    parent_row = parent.index if isinstance(parent, Entity) else int(parent)
+    depth = 1
+    if world.has(parent_row, ChildOf):
+        depth = int(world.get(parent_row, ChildOf).depth) + 1
+    world.insert(child_row, ChildOf(parent=parent_row, depth=depth))
+
+
+def children_of(world, parent) -> list:
+    """The rows whose ChildOf points at `parent` (ref: Children, the
+    derived inverse relationship); a host read."""
+    parent_row = parent.index if isinstance(parent, Entity) else int(parent)
+    rows = world.query_rows(ChildOf)
+    if len(rows) == 0:
+        return []
+    parents = world.column(ChildOf, "parent").cpu().numpy()[rows]
+    return [int(r) for r in rows[np.flatnonzero(parents == parent_row)]]
+
+
+def despawn_recursive(world, entity):
+    """Despawn an entity and all its descendants (ref: despawn with
+    Children cleanup)."""
+    for c in children_of(world, entity):
+        despawn_recursive(world, c)
+    world.despawn(entity)
 
 
 def make_propagate_system(max_depth: int = 8, world=None):

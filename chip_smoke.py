@@ -3,7 +3,7 @@
     python3 chip_smoke.py
 
 (`python3 chip_smoke.py --a8-only` builds and runs phases 37-38 alone,
-printing no result line.) Builds the CUDA kernels from
+`--a7-only` phase 39 alone, printing no result line.) Builds the CUDA kernels from
 `bevy_tpu_torch/csrc/` (one nvcc process a source, all started together),
 then:
 1. holds the window-splat (B1) and streaming-tile (B2) kernels against
@@ -221,7 +221,28 @@ then:
    scene (under the JAX test's bound of full detail); and the OIT,
    transmission and custom-material twins (transparency_3d, blend_modes,
    glass_and_coat, shader_material): 10 frames timed, launches,
-   overflows 0, every B1 / B2 call of a frame bit-equal, a profile.
+   overflows 0, every B1 / B2 call of a frame bit-equal, a profile;
+39. the ECS and app core (A7a): (a) each ECS twin (examples/torch_<name>.py
+   for run_conditions, change_detection, removal_detection,
+   component_hooks, observer_propagation, one_shot_systems, states,
+   sub_states, computed_states, system_stepping, ecs_hierarchy,
+   many_components, message_events, startup_systems) runs its 5 scripted
+   frames on the card and on the CPU: the whole world state (every
+   component column and tick, resource, message and event buffer, each
+   system's last run and Local store, tick, frame) equal (ints and bools
+   exactly, floats within 1e-5); 20 more frames profiled: kernel
+   launches and Memcpy DtoH records a frame, 0 for the device-tier twins
+   (run_conditions, states, computed_states, change_detection,
+   observer_propagation); (b) alien_cake_addict
+   (examples/torch_alien_cake_addict.py) at 1280x720 on the group route:
+   240 frames of the scripted chase, each frame through InputPlugin's
+   frame inputs, the game's host systems and the mesh pass; its
+   trajectory (player cell, cake cell, score a frame) equal to the port's
+   CPU run at 128x80, the score above 0, every B1 and B2 call of every
+   frame bit-equal to plain, pair_overflow 0; then 240 more frames timed
+   one by one with CUDA events (median and spread), B1 / B2 launches a
+   frame, the Memcpy DtoH records a frame over 3 frames and a 3-frame
+   profile (busy share).
 
 The shards of phases 15-19 all sit on the one card (a ShardMesh may repeat
 a device): their work runs one shard after another.
@@ -3144,6 +3165,184 @@ def a8_phases(dev, n, smi, results):
     torch.cuda.synchronize()
 
 
+ECS_TWINS = ("run_conditions", "change_detection", "removal_detection",
+             "component_hooks", "observer_propagation", "one_shot_systems",
+             "states", "sub_states", "computed_states", "system_stepping",
+             "ecs_hierarchy", "many_components", "message_events",
+             "startup_systems")
+# the twins whose frames run on the device alone: 0 Memcpy DtoH a frame
+DEVICE_TIER_TWINS = ("run_conditions", "states", "computed_states",
+                     "change_detection", "observer_propagation")
+ALIEN_FRAMES = 240      # the JAX example's session: the first cake is
+                        # eaten near frame 215 (PERF.md, ROADMAP C3)
+
+
+def sys_by_name(state):
+    """A world state with its systems ('name#counter' ids, numbered per
+    process) keyed by name and their order among systems of that name."""
+    groups = {}
+    for sid in sorted(state["sys"], key=lambda x: int(x.rsplit("#", 1)[1])):
+        groups.setdefault(sid.rsplit("#", 1)[0], []).append(state["sys"][sid])
+    return dict(state, sys={f"{name}/{k}": st for name, sts in groups.items()
+                            for k, st in enumerate(sts)})
+
+
+def same_port_state(a, b, path=()):
+    """Two port world states (nested dicts of tensors on any devices):
+    the same keys, ints and bools equal, floats within 1e-5."""
+    if isinstance(a, dict) or isinstance(b, dict):
+        if not (isinstance(a, dict) and isinstance(b, dict)) or \
+                set(a) != set(b):
+            raise AssertionError(f"state {path}: keys differ")
+        for k in a:
+            same_port_state(a[k], b[k], path + (k,))
+        return
+    a, b = a.cpu(), b.cpu()
+    if a.dtype != b.dtype or a.shape != b.shape:
+        raise AssertionError(f"state {path}: {a.dtype}{tuple(a.shape)} vs "
+                             f"{b.dtype}{tuple(b.shape)}")
+    ok = torch.allclose(a, b, rtol=1e-5, atol=1e-5) if a.is_floating_point() \
+        else torch.equal(a, b)
+    if not ok:
+        raise AssertionError(f"state {path}: card and CPU differ")
+
+
+def update_profile(step, state, frames=20):
+    """Kernel launches and Memcpy DtoH records a frame over `frames` frames
+    of `step` (torch.profiler's CUDA activity). Raises when the profiler
+    kept no kernel record: a window of a few small kernels can come back
+    empty (one frame of ~10 kernels did, on the H100), and then it could
+    not have seen a host read either."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+    from torch_many_cubes import SPANS
+    with torch_profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA]) as prof:
+        for _ in range(frames):
+            state = step(state)
+        torch.cuda.synchronize()
+    events = prof.events()
+    dtoh = sum(1 for e in events if "Memcpy DtoH" in e.name)
+    kernels = sum(1 for e in events if e.device_type == DeviceType.CUDA
+                  and not e.name.startswith(SPANS + ("Memcpy", "Memset")))
+    if kernels == 0:
+        raise AssertionError(f"the profiler kept no kernel record over "
+                             f"{frames} frames")
+    return kernels / frames, dtoh / frames
+
+
+def a7_phases(dev, smi, results):
+    """Phase 39: the ECS and app core (A7a) — the ECS twins on the card
+    against the CPU, and alien_cake_addict at 1280x720."""
+    import importlib
+
+    import torch_alien_cake_addict as alien
+    from torch_ecs_run import drive, update_step
+    from torch_many_cubes import profile_frames
+    from bevy_tpu_torch.render import frame_image
+
+    # -- 39a: the ECS twins, card against CPU -----------------------------
+    for name in ECS_TWINS:
+        mod = importlib.import_module(f"torch_{name}")
+        cpu = drive(mod, mod.build_app(device="cpu"), 5)
+        card = drive(mod, mod.build_app(device=dev), 5)
+        torch.cuda.synchronize()
+        same_port_state(sys_by_name(card.world.state),
+                        sys_by_name(cpu.world.state))
+        launches, dtoh = update_profile(update_step(mod, card),
+                                        card.world.state)
+        log(f"twin {name}: 5 frames, the card's world state equals the "
+            f"CPU's; 20 more frames: {launches:.1f} kernel launches and "
+            f"{dtoh:.2f} Memcpy DtoH records a frame")
+        if name in DEVICE_TIER_TWINS and dtoh:
+            raise AssertionError(f"twin {name}: {dtoh} host reads a frame")
+        del cpu, card
+
+    # -- 39b: alien_cake_addict at 1280x720 -------------------------------
+    t0 = time.perf_counter()
+    cpu_rows = alien.play(alien.build_app(width=128, height=80,
+                                          device="cpu"), ALIEN_FRAMES)
+    log(f"alien_cake_addict on the CPU at 128x80: {ALIEN_FRAMES} frames in "
+        f"{time.perf_counter() - t0:.1f} s, score {cpu_rows[-1][4]}")
+    app = alien.build_app(device=dev)
+    rows, n_b1, n_b2, errs = [], 0, 0, []
+    t0 = time.perf_counter()
+    for chunk in range(0, ALIEN_FRAMES, 20):
+        with Recorder() as rec:
+            rows += alien.play(app, min(20, ALIEN_FRAMES - chunk))
+        torch.cuda.synchronize()
+        for kid in ("B1", "B2"):
+            for a, kw in rec.calls[kid]:
+                errs.append(compare(kid, a, kw))
+        n_b1 += len(rec.calls["B1"])
+        n_b2 += len(rec.calls["B2"])
+        del rec
+    check_stats(app.world.state, ("pair_overflow",))
+    stats = {k: int(v) for k, v in
+             app.world.state["res"]["render_stats"].items()}
+    log(f"alien_cake_addict @1280x720, {ALIEN_FRAMES} frames of the chase "
+        f"({time.perf_counter() - t0:.1f} s with the checks): score "
+        f"{rows[-1][4]}; B1 {n_b1} and B2 {n_b2} calls, each bit-equal to "
+        f"plain (max abs err {max(errs)}); render_stats {stats}")
+    if rows != cpu_rows:
+        first = next(i for i, (x, y) in enumerate(zip(rows, cpu_rows))
+                     if x != y)
+        raise AssertionError(f"alien_cake_addict: trajectory differs from "
+                             f"the CPU's at frame {first}")
+    if rows[-1][4] <= 0:
+        raise AssertionError("alien_cake_addict: never ate a cake")
+    if n_b1 == 0:
+        raise AssertionError("alien_cake_addict: B1 never launched")
+    # timing: frame by frame, CUDA events around each update
+    evs = [(torch.cuda.Event(enable_timing=True),
+            torch.cuda.Event(enable_timing=True))
+           for _ in range(ALIEN_FRAMES)]
+    reset_launches()
+    for s_, e_ in evs:
+        s_.record()
+        alien.play(app, 1)
+        e_.record()
+    torch.cuda.synchronize()
+    launches = read_launches()
+    ms = np.asarray([s_.elapsed_time(e_) for s_, e_ in evs])
+    log(f"alien_cake_addict @1280x720 ({smi}): {ALIEN_FRAMES} more frames, "
+        f"ms/frame median {np.median(ms):.3f} (min {ms.min():.3f}, p10 "
+        f"{np.percentile(ms, 10):.3f}, p90 {np.percentile(ms, 90):.3f}, max "
+        f"{ms.max():.3f}); kernel launches a frame "
+        f"{ {k: v / ALIEN_FRAMES for k, v in launches.items() if v} }; "
+        f"pair_overflow {int(app.world.state['res']['render_stats']['pair_overflow'])}")
+    if launches["B1"] == 0 or any(launches[k] for k in (
+            "B3", "B4", "B5", "B6", "B7", "B8")):
+        raise AssertionError(f"alien_cake_addict: launches {launches}")
+    check_stats(app.world.state, ("pair_overflow",))
+
+    def step(state):
+        app.world.state = state
+        alien.play(app, 1)
+        return app.world.state
+
+    nk, dtoh = update_profile(step, app.world.state, frames=3)
+    state, wall, nk3, per_span, _, _ = profile_frames(step, app.world.state,
+                                                      3)
+    busy = sum(per_span.values()) / 1000.0
+    top = sorted(per_span.items(), key=lambda kv: -kv[1])[:6]
+    log(f"  alien_cake_addict, 3 frames: {nk:.1f} kernel launches and "
+        f"{dtoh:.1f} Memcpy DtoH records a frame; profile, 3 frames: {wall / 3:.3f} ms/frame "
+        f"wall (profiler on), kernels {busy / 3:.3f} ms/frame = "
+        f"{busy / wall:.1%} busy, {nk3 // 3} kernel launches/frame; device "
+        f"ms/frame by innermost span: "
+        + "; ".join(f"{k_} {us / 3000:.3f}" for k_, us in top))
+    img = frame_image(app)
+    if not np.isfinite(img).all() or img.std() == 0:
+        raise AssertionError("alien_cake_addict: frame not drawn")
+    for kid, n in (("B1", n_b1), ("B2", n_b2)):
+        results.setdefault(kid, {})["alien_cake_addict"] = {
+            "launches": launches[kid], "checked_calls": n,
+            "max_abs_err": max(errs)}
+    del app
+    torch.cuda.empty_cache()
+
+
 def main():
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -3194,6 +3393,13 @@ def main():
             f"registers")
     log(f"  ptxas: {len(spilled)} functions spill"
         + "".join(f"\n    {e}" for e in spilled))
+
+    if sys.argv[1:] == ["--a7-only"]:
+        # development: the build and phase 39 alone, no result line
+        a7_phases(dev, smi, {"B1": {}, "B2": {}})
+        log(f"chip_smoke.py --a7-only ran {time.perf_counter() - t_start:.1f}"
+            f" s")
+        return
 
     if sys.argv[1:] == ["--a8-only"]:
         # development: the build and phases 37-38 alone, no result line
@@ -3426,6 +3632,8 @@ def main():
     screen_pass_phases(dev, 10, smi)
 
     a8_phases(dev, 10, smi, results)
+
+    a7_phases(dev, smi, results)
 
     log(f"chip_smoke.py ran {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [results[k] for k in KERNELS]}))

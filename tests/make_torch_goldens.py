@@ -30,6 +30,16 @@ bevy_tpu_torch against, into tests/goldens/:
   bvh_f1.png, lod_15.png, lod_coarse.png, dag_f1.png: the
   worlds of cameras and viewports, OIT, transmission, custom materials,
   depth bias, occlusion, the BVH cull, LOD chains and the cluster DAG;
+- ecs_one_shot_systems.npz, ecs_computed_states.npz,
+  ecs_message_events.npz, ecs_startup_systems.npz: the JAX examples'
+  whole world states after each of five frames of their twins' scripts
+  (tests/torch_ecs_parity.py run_jax; these four JAX examples fail in
+  whole JAX test runs);
+- alien_trajectory.npz: the JAX alien_cake_addict's game trajectory over
+  240 frames of the scripted chase (player cell, cake cell, score a
+  frame), alien_f190.png and alien_f190_xla.png: its 128x80 frame after
+  190 of them, in pallas_interpret and on the general route
+  (backend="xla") (torch_scenes.alien_world);
 - torch_goldens.json: each image's torch_scenes.golden_key (a hash of
   its scene builder and arguments), which the test asserts.
 
@@ -59,6 +69,7 @@ import numpy as np  # noqa: E402
 HERE = Path(__file__).resolve().parent
 sys.path.insert(0, str(HERE.parent))
 sys.path.insert(0, str(HERE))
+sys.path.insert(0, str(HERE.parent / "examples"))
 
 import torch_scenes  # noqa: E402
 
@@ -97,6 +108,11 @@ def caster_depth():
 
 
 def render(name):
+    if name.startswith("ecs_"):
+        import torch_ecs_parity
+        states, _ = torch_ecs_parity.run_jax(name[4:])
+        torch_ecs_parity.save_states(name[4:], states)
+        return
     m = jax_modules()
     fn, args = torch_scenes.GOLDEN_SCENES[name]
     if name == "shadow_caster_depth":
@@ -129,6 +145,16 @@ def render(name):
             from PIL import Image
             Image.fromarray(out.astype(np.uint8)).save(
                 GOLDENS / f"{name}.png")
+    elif fn is torch_scenes.alien_world:
+        import alien_cake_addict
+        img, rows = fn(alien_cake_addict, {}, *args)
+        if name == "alien_trajectory":
+            np.savez_compressed(GOLDENS / f"{name}.npz",
+                                rows=np.asarray(rows, np.int32))
+        else:
+            from PIL import Image
+            Image.fromarray(img.astype(np.uint8)).save(
+                GOLDENS / f"{name}.png")
     elif fn is torch_scenes.material_world:
         color = fn(m, args[0], {}, JAX_KW, *args[1:])[1]
         np.savez_compressed(GOLDENS / f"{name}.npz",
@@ -143,7 +169,10 @@ def render(name):
     keys_path.write_text(json.dumps(keys, indent=1, sort_keys=True) + "\n")
 
 
-NAMES = tuple(torch_scenes.GOLDEN_SCENES)
+ECS_STORED = ("one_shot_systems", "computed_states", "message_events",
+              "startup_systems")
+NAMES = tuple(torch_scenes.GOLDEN_SCENES) + tuple(
+    f"ecs_{n}" for n in ECS_STORED)
 
 if __name__ == "__main__":
     for n in sys.argv[1:] or NAMES:

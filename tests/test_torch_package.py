@@ -40,10 +40,20 @@ TWINS = ("torch_many_cubes", "torch_many_lights", "torch_many_sprites",
          "torch_irradiance_volumes", "torch_decals", "torch_wireframe",
          "torch_split_screen", "torch_transparency_3d", "torch_blend_modes",
          "torch_glass_and_coat", "torch_shader_material")
+# the ECS and app twins (no frame size)
+ECS_TWINS = ("torch_run_conditions", "torch_change_detection",
+             "torch_removal_detection", "torch_component_hooks",
+             "torch_observer_propagation", "torch_one_shot_systems",
+             "torch_states", "torch_sub_states", "torch_computed_states",
+             "torch_system_stepping", "torch_ecs_hierarchy",
+             "torch_many_components", "torch_message_events",
+             "torch_startup_systems")
+TWINS = TWINS + ECS_TWINS + ("torch_alien_cake_addict",)
 # the slice modules whose entry points must default to the card
 CARD_DEFAULTS = ("torch_split_screen", "torch_transparency_3d",
                  "torch_blend_modes", "torch_glass_and_coat",
-                 "torch_shader_material", "torch_many_cubes")
+                 "torch_shader_material", "torch_many_cubes",
+                 "torch_alien_cake_addict") + ECS_TWINS
 
 
 def _imports(path):
@@ -83,9 +93,11 @@ def test_twin_defaults_to_the_card(name):
         sys.path.remove(str(ROOT / "examples"))
     assert inspect.signature(build).parameters["device"].default == "cuda"
     if not torch.cuda.is_available():
+        kw = {} if name in ECS_TWINS else dict(width=64, height=32)
+        if name == "torch_many_cubes":
+            kw["n_cubes"] = 8
         with pytest.raises(RuntimeError, match="CUDA"):
-            build(width=64, height=32) if name != "torch_many_cubes" \
-                else build(n_cubes=8, width=64, height=32)
+            build(**kw)
 
 
 def test_import_builds_nothing():

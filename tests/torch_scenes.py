@@ -520,6 +520,33 @@ GOLDEN_SCENES = {
 }
 
 
+def alien_world(mod, app_kw, width, height, backend, frames):
+    """alien_cake_addict built with `mod` (the JAX example or its twin,
+    examples/torch_alien_cake_addict.py) at width x height on `backend`,
+    after `frames` frames of the twin's scripted chase. Returns (the
+    sRGB frame (H, W, 4) int, the trajectory rows: player cell, cake cell
+    (-1 without a live cake), score a frame)."""
+    import importlib
+    twin = importlib.import_module("torch_alien_cake_addict")
+    app = mod.build_app(width=width, height=height, backend=backend,
+                        **app_kw)
+    rows = []
+    for _ in range(frames):
+        twin.steer(app)
+        app.update(dt=1 / 60)
+        rows.append(twin.trajectory_row(app))
+    frame_image = importlib.import_module(
+        type(app).__module__.split(".")[0] + ".render.plugin").frame_image
+    return np.asarray(frame_image(app)).astype(int), rows
+
+
+GOLDEN_SCENES.update({
+    "alien_trajectory": (alien_world, (128, 80, "xla", 240)),
+    "alien_f190": (alien_world, (128, 80, "pallas_interpret", 190)),
+    "alien_f190_xla": (alien_world, (128, 80, "xla", 190)),
+})
+
+
 def golden_key(name):
     """A short sha256 of what renders the stored image `name`: its scene
     builder's source, the module constants the builders read and its
@@ -539,6 +566,14 @@ def golden_key(name):
                           + [repr(ROT_UP), repr(GOLDEN_BACKEND.get(name))])
     if fn in (occl_world, budget_world):
         text += inspect.getsource(_cube_field)
+    if fn is alien_world:
+        import importlib
+        from pathlib import Path
+        ex = Path(__file__).resolve().parent.parent / "examples"
+        twin = importlib.import_module("torch_alien_cake_addict")
+        text += (ex / "alien_cake_addict.py").read_text() + "".join(
+            inspect.getsource(f) for f in (twin.build_app, twin.steer,
+                                           twin.trajectory_row))
     return hashlib.sha256(text.encode()).hexdigest()[:16]
 
 
